@@ -6,22 +6,38 @@
 
 Phases (any failure exits non-zero without a result line):
   1. set-up: require CUDA, print the card's name and power limit
-     (nvidia-smi), build the CUDA kernels from csrc/;
+     (nvidia-smi), build the CUDA kernels from csrc/ (one nvcc per
+     source, in parallel);
   2. kernels against their plain torch versions on the card, at every
-     DP bucket (M, W) with B = CHUNK_BY_M instances: row DP on global
-     instances, and on extensions with an N block with zdrop off and on
-     (direction bytes of rows <= m, best cell, h_last through the -20000
-     floor; zdrop must change the best cell of some instance), and row
-     traceback from global, extension-best and row-0 starts (step words
-     and terminals); exact integer equality; both times per shape;
+     DP bucket (M, W) with B = CHUNK_BY_M instances, exact integer
+     equality, times per shape:
+     a. the row pair: row DP on global instances, and on extensions
+        with an N block with zdrop off and on (direction bytes of rows
+        <= m, best cell, h_last through the -20000 floor; zdrop must
+        change the best cell of some instance), and row traceback from
+        global, extension-best and row-0 starts (step words, terminals);
+     b. the antidiagonal pair on even-lo global instances with indels
+        and N codes, one a 35-base deletion and one a deletion ladder:
+        adiag DP (direction words below m + n, h_last through the
+        floor, global score equal to the row DP's) and the walker
+        (opbits, events, term0, n_ev; both stress instances must
+        overflow, the 35-base run only where events are narrow); adiag
+        DP and walker times beside the row pair's on the same instances;
   3. end to end: the config-1 world of bench.py (4.6 Mb genome, k=13,
      512 reads of 1-5 kb, 15% SV reads) through align_reads on the card
      with batch size 256, after one warm batch. Prints reads/s, the
-     stage breakdown with the chain_hits loop's share, both kernels'
-     launch counts in that run (must be > 0), part recall / read
-     accuracy (part recall must be >= 0.99), and checks the SAM of the
-     first 32 reads byte for byte against the port's CPU path (the
-     plain versions).
+     stage breakdown with the chain_hits loop's share, the four kernels'
+     launch counts in that run (each must be > 0), part recall / read
+     accuracy (part recall must be >= 0.99), checks the SAM of the first
+     32 reads byte for byte against the port's CPU path (the plain
+     versions), and the SAM of the first 64 reads on the card with
+     ADIAG_ENABLED False and True (byte-identical);
+  4. the 10 kb world of bench.py's 10 kb section (768 reads of 9-11 kb
+     on the config-1 genome): warm on 256 reads, time the other 512
+     through align_reads with batch 256; prints reads/s, part recall
+     (must be >= 0.99), DP cells and instances per bucket and the four
+     kernels' launches, and checks the SAM of the first 8 timed reads
+     byte for byte against the CPU path.
 The last two lines are a JSON summary of the kernels and the result
 line {"ok": true, "device": {...}}.
 
@@ -42,6 +58,9 @@ import numpy as np
 
 FLOOR = -20000          # dead DP lanes may differ only below this
 N_SAM_CHECK = 32
+N_ENGINE_CHECK = 64
+N_SAM_CHECK_10KB = 8
+N_10KB, N_WARM_10KB = 768, 256      # bench.py's 10 kb section
 
 
 def fail(msg: str) -> None:
@@ -126,7 +145,7 @@ def phase_kernels(dev, scores, rng):
         return [torch.from_numpy(a).to(dev) for a in arrs]
 
     check_tie_rules(dev)
-    log("phase 2: kernels vs plain versions (exact), times in ms per call "
+    log("phase 2a: row pair vs plain versions (exact), times in ms per call "
         "(global instances, zdrop off)")
     log(f"{'M':>5} {'W':>4} {'B':>5}  {'dp':>9} {'dp_plain':>9}  "
         f"{'tb':>9} {'tb_plain':>9}  zdrop_changed_best")
@@ -190,27 +209,138 @@ def phase_kernels(dev, scores, rng):
         tot["dp_plain"] += dp_plain_ms
         tot["tb"] += tb_ms
         tot["tb_plain"] += tb_plain_ms
-    log(f"phase 2 ok: both kernels equal their plain versions at all "
+    log(f"phase 2a ok: the row pair equals its plain versions at all "
         f"{len(BUCKETS)} buckets (global instances; N-block extensions "
         f"with zdrop off and on, zdrop firing in each bucket; global, "
         f"extension-best and row-0 traceback starts)")
     return err, tot
 
 
-def phase_e2e(dev, card):
+def phase_adiag(dev, scores, rng):
+    """Phase 2b: the antidiagonal pair against its plain versions, and
+    its times beside the row pair's on the same global instances."""
     import torch
 
-    import bench
-    from lamsa_tpu.eval import evaluate
+    from lamsa_tpu_torch.ops.banded_sw_adiag import (banded_sw_adiag,
+                                                     banded_sw_adiag_plain)
+    from lamsa_tpu_torch.ops.banded_sw_row import banded_sw_row
+    from lamsa_tpu_torch.ops.testing import adiag_live, make_globals
+    from lamsa_tpu_torch.ops.traceback_adiag import (traceback_adiag,
+                                                     traceback_adiag_plain)
+    from lamsa_tpu_torch.ops.traceback_row import traceback_row
+    from lamsa_tpu_torch.ops.wire import compact_wide, extract_scores
+    from lamsa_tpu_torch.pipeline.extend import BUCKETS, CHUNK_BY_M
+
+    kw = dict(match=scores.match, mismatch=scores.mismatch,
+              gapo=scores.gap_open, gape=scores.gap_ext)
+    err = {"adp": 0, "atb": 0}
+    tot = {"adp": 0.0, "adp_plain": 0.0, "atb": 0.0, "atb_plain": 0.0}
+
+    def diff(a, b):
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) \
+            if a.numel() else 0
+
+    log("phase 2b: antidiagonal pair vs plain versions (exact) and vs the "
+        "row pair on the same even-lo global instances, ms per call")
+    log(f"{'M':>5} {'W':>4} {'B':>5}  {'adiag_dp':>9} {'row_dp':>9} "
+        f"{'plain':>9}  {'walker':>9} {'row_tb':>9} {'plain':>9}  overflow")
+    for M, W in BUCKETS:
+        B = CHUNK_BY_M[(M, W)]
+        q, t_win, m_len, n_len, lo = [
+            torch.from_numpy(a).to(dev)
+            for a in make_globals(rng, B, M, W, stress=True)]
+        args = (q, t_win, m_len, n_len, lo)
+        got = banded_sw_adiag(*args, **kw)
+        want, dp_plain_ms = cuda_ms_once(
+            lambda: banded_sw_adiag_plain(*args, **kw))
+        live = adiag_live(m_len, n_len, got["dirs32a"].shape[1])
+        e = max(diff(torch.where(live, got["dirs32a"], 0),
+                     torch.where(live, want["dirs32a"], 0)),
+                diff(got["h_last"].clamp(min=FLOOR),
+                     want["h_last"].clamp(min=FLOOR)))
+        if e:
+            fail(f"banded_sw_adiag != plain at M={M} W={W} (max abs err {e})")
+        err["adp"] = max(err["adp"], e)
+        zero = torch.zeros_like(m_len)
+        row = banded_sw_row(*args, zero, **kw)
+        g_a = extract_scores(got["h_last"], m_len, n_len, lo)[0]
+        g_r = extract_scores(row["h_last"], m_len, n_len, lo)[0]
+        if not torch.equal(g_a, g_r):
+            fail(f"adiag and row global scores differ at M={M} W={W}")
+
+        sd = (n_len - m_len - lo).contiguous()
+        walk = (got["dirs32a"], m_len, sd, (lo >> 1).contiguous())
+        tg = traceback_adiag(*walk, M=M)
+        tw, tb_plain_ms = cuda_ms_once(
+            lambda: traceback_adiag_plain(*walk, M=M))
+        e = max(diff(a, b) for a, b in zip(tg, tw))
+        if e:
+            fail(f"traceback_adiag != plain at M={M} W={W} "
+                 f"(max abs err {e})")
+        err["atb"] = max(err["atb"], e)
+        n_ev = tg[3].cpu().numpy()
+        if n_ev[-1] != 0xFFFF or (not compact_wide(M)
+                                  and n_ev[-2] != 0xFFFF):
+            fail(f"the walker's event overflow was not exercised at M={M} "
+                 f"W={W} (n_ev of the stress instances {n_ev[-2:]})")
+
+        adp_ms = cuda_ms(lambda: banded_sw_adiag(*args, **kw), 3)
+        rdp_ms = cuda_ms(lambda: banded_sw_row(*args, zero, **kw), 3)
+        rwalk = (row["dirs32"], lo, m_len.clone(), sd)
+        atb_ms = cuda_ms(lambda: traceback_adiag(*walk, M=M), 3)
+        rtb_ms = cuda_ms(lambda: traceback_row(*rwalk), 3)
+        log(f"{M:>5} {W:>4} {B:>5}  {adp_ms:9.3f} {rdp_ms:9.3f} "
+            f"{dp_plain_ms:9.3f}  {atb_ms:9.3f} {rtb_ms:9.3f} "
+            f"{tb_plain_ms:9.3f}  {int((n_ev == 0xFFFF).sum())}/{B}")
+        tot["adp"] += adp_ms
+        tot["adp_plain"] += dp_plain_ms
+        tot["atb"] += atb_ms
+        tot["atb_plain"] += tb_plain_ms
+    log(f"phase 2b ok: the antidiagonal pair equals its plain versions at "
+        f"all {len(BUCKETS)} buckets, with event overflow in each; global "
+        f"scores equal the row DP's")
+    return err, tot
+
+
+KERNEL_MODULES = ("banded_sw_row", "traceback_row", "banded_sw_adiag",
+                  "traceback_adiag")
+
+
+def launch_counts(reset=False):
+    """The four kernel wrappers' launch counts (set to 0 with reset)."""
+    import importlib
+    mods = [importlib.import_module(f"lamsa_tpu_torch.ops.{n}")
+            for n in KERNEL_MODULES]
+    if reset:
+        for m in mods:
+            m.LAUNCHES = 0
+    return {n: m.LAUNCHES for n, m in zip(KERNEL_MODULES, mods)}
+
+
+def sam_lines(out):
     from lamsa_tpu.io.sam import format_sam_record
+    return [format_sam_record(r) for rs in out for r in rs]
+
+
+def check_sam(got, want, what):
+    if got != want:
+        bad = next(i for i, (a, b) in enumerate(zip(got, want))
+                   if a != b) if len(got) == len(want) else -1
+        fail(f"{what}: SAM differs (records {len(got)} vs {len(want)}, "
+             f"first diff {bad})")
+
+
+def phase_e2e(dev, card, world):
+    import torch
+
+    from lamsa_tpu.eval import evaluate
     from lamsa_tpu.utils.timers import GLOBAL as STATS
-    from lamsa_tpu_torch.ops import banded_sw_row, traceback_row
+    from lamsa_tpu_torch.pipeline import extend
     from lamsa_tpu_torch.pipeline.aln import Aligner, align_reads
 
-    t0 = time.perf_counter()
-    _genome, ref, idx, cfg, reads = bench.build_world()
-    log(f"phase 3: config-1 world built in {time.perf_counter() - t0:.1f} s"
-        f" ({ref.total_len} bp, k={idx.k}, {len(reads)} reads)")
+    _genome, ref, idx, cfg, reads = world
+    log(f"phase 3: config-1 world ({ref.total_len} bp, k={idx.k}, "
+        f"{len(reads)} reads)")
     t0 = time.perf_counter()
     aligner = Aligner(ref, idx, cfg, device=dev)
     aligner.align_batch(reads[:256])
@@ -219,15 +349,13 @@ def phase_e2e(dev, card):
         f"{time.perf_counter() - t0:.2f} s")
 
     STATS.reset()
-    banded_sw_row.LAUNCHES = 0
-    traceback_row.LAUNCHES = 0
+    launch_counts(reset=True)
     t0 = time.perf_counter()
     out = list(align_reads(ref, idx, reads, cfg, batch_size=256,
                            aligner=aligner))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"banded_sw_row": banded_sw_row.LAUNCHES,
-                "traceback_row": traceback_row.LAUNCHES}
+    launches = launch_counts()
     rps = len(reads) / wall
     chain_s = STATS.wall.get("chain_hits", 0.0)
     log(f"end to end: {len(reads)} reads in {wall:.3f} s = {rps:.2f} reads/s"
@@ -249,16 +377,101 @@ def phase_e2e(dev, card):
     t0 = time.perf_counter()
     cpu_out = Aligner(ref, idx, cfg, device="cpu").align_batch(
         reads[:N_SAM_CHECK])
-    sam_gpu = [format_sam_record(r) for rs in out[:N_SAM_CHECK] for r in rs]
-    sam_cpu = [format_sam_record(r) for rs in cpu_out for r in rs]
-    if sam_gpu != sam_cpu:
-        bad = next(i for i, (a, b) in enumerate(zip(sam_gpu, sam_cpu))
-                   if a != b) if len(sam_gpu) == len(sam_cpu) else -1
-        fail(f"GPU SAM != CPU SAM on the first {N_SAM_CHECK} reads "
-             f"(records {len(sam_gpu)} vs {len(sam_cpu)}, first diff {bad})")
+    sam_gpu = sam_lines(out[:N_SAM_CHECK])
+    check_sam(sam_gpu, sam_lines(cpu_out),
+              f"cuda vs cpu on the first {N_SAM_CHECK} reads")
     log(f"SAM of the first {N_SAM_CHECK} reads ({len(sam_gpu)} records) is "
         f"byte-identical between cuda and the cpu plain path "
         f"({time.perf_counter() - t0:.1f} s on the cpu)")
+
+    # engine equality on the card: globals on the row pair, then on the
+    # antidiagonal pair
+    sams, adiag = {}, {}
+    for enabled in (False, True):
+        extend.ADIAG_ENABLED = enabled
+        try:
+            launch_counts(reset=True)
+            sams[enabled] = sam_lines(
+                aligner.align_batch(reads[:N_ENGINE_CHECK]))
+            torch.cuda.synchronize()
+            adiag[enabled] = launch_counts()["banded_sw_adiag"]
+        finally:
+            extend.ADIAG_ENABLED = True
+    if adiag[False] != 0 or adiag[True] <= 0:
+        fail(f"ADIAG_ENABLED did not switch the engine (adiag DP launches "
+             f"{adiag})")
+    check_sam(sams[True], sams[False],
+              f"ADIAG_ENABLED True vs False on the first {N_ENGINE_CHECK} "
+              f"reads")
+    log(f"SAM of the first {N_ENGINE_CHECK} reads ({len(sams[True])} "
+        f"records) is byte-identical on the card with globals on the row "
+        f"pair and on the antidiagonal pair ({adiag[True]} adiag DP "
+        f"launches)")
+    return launches, rps
+
+
+def phase_10kb(dev, card, world):
+    """Phase 4: bench.py's 10 kb world (its 10 kb section, copied here)
+    on the card."""
+    import torch
+
+    import bench
+    from lamsa_tpu import sim
+    from lamsa_tpu.eval import evaluate
+    from lamsa_tpu.utils.timers import GLOBAL as STATS
+    from lamsa_tpu_torch.pipeline.aln import Aligner, align_reads
+
+    genome, ref, idx, cfg, _reads = world
+    reads10 = sim.simulate_reads(np.random.default_rng(bench.SEED + 1),
+                                 genome, N_10KB, read_len=(9000, 11000),
+                                 sub=0.02, ins=0.04, dele=0.04,
+                                 sv_fraction=0.15)
+    t0 = time.perf_counter()
+    a10 = Aligner(ref, idx, cfg, device=dev)
+    a10.align_batch(reads10[:N_WARM_10KB])
+    torch.cuda.synchronize()
+    log(f"phase 4: 10 kb world, warm batch ({N_WARM_10KB} reads) "
+        f"{time.perf_counter() - t0:.2f} s")
+    timed = reads10[N_WARM_10KB:]
+    STATS.reset()
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    out = list(align_reads(ref, idx, timed, cfg, batch_size=256,
+                           aligner=a10))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    rps = len(timed) / wall
+    log(f"10 kb: {len(timed)} reads in {wall:.3f} s = {rps:.2f} reads/s "
+        f"(align_reads, batch 256) on {card}")
+    chain_s = STATS.wall.get("chain_hits", 0.0)
+    log(f"chain_hits loop: {chain_s:.3f} s = {chain_s / wall:.3f} of the "
+        f"wall; dp_batch {STATS.wall.get('dp_batch', 0.0):.3f} s")
+    per_bucket = {k[len("dp_instances_"):]: (STATS.counters[k],
+                                             STATS.counters.get(
+                                                 "dp_cells_" + k[13:], 0))
+                  for k in sorted(STATS.counters)
+                  if k.startswith("dp_instances_")}
+    log("DP instances / cells per bucket: " + ", ".join(
+        f"{b}: {i} / {c}" for b, (i, c) in per_bucket.items())
+        + f"; adiag instances {STATS.counters.get('dp_adiag_instances', 0)}")
+    log(f"kernel launches in the 10 kb run: {launches}")
+    if min(launches.values()) <= 0:
+        fail(f"a kernel was never launched in the 10 kb run: {launches}")
+    st = evaluate(out, timed)
+    log(f"10 kb accuracy: part_recall={st.part_recall:.4f} "
+        f"read_accuracy={st.read_accuracy:.4f} ({st.summary()})")
+    if st.part_recall < 0.99:
+        fail(f"10 kb part_recall {st.part_recall:.4f} < 0.99")
+    t0 = time.perf_counter()
+    cpu_out = Aligner(ref, idx, cfg, device="cpu").align_batch(
+        timed[:N_SAM_CHECK_10KB])
+    sam_gpu = sam_lines(out[:N_SAM_CHECK_10KB])
+    check_sam(sam_gpu, sam_lines(cpu_out),
+              f"10 kb cuda vs cpu on the first {N_SAM_CHECK_10KB} reads")
+    log(f"10 kb SAM of the first {N_SAM_CHECK_10KB} timed reads "
+        f"({len(sam_gpu)} records) is byte-identical between cuda and the "
+        f"cpu plain path ({time.perf_counter() - t0:.1f} s on the cpu)")
     return launches, rps
 
 
@@ -362,9 +575,16 @@ def main() -> int:
     if sys.argv[1:] == ["--profile"]:
         print(json.dumps({"profile": phase_profile(dev, card)}), flush=True)
         return 0
+    import bench
     scores = ScoreParams(match=1, mismatch=3, gap_open=2, gap_ext=1)
-    err, tot = phase_kernels(dev, scores, np.random.default_rng(20260817))
-    launches, _rps = phase_e2e(dev, card)
+    rng = np.random.default_rng(20260817)
+    err, tot = phase_kernels(dev, scores, rng)
+    err_a, tot_a = phase_adiag(dev, scores, rng)
+    t0 = time.perf_counter()
+    world = bench.build_world()
+    log(f"config-1 world built in {time.perf_counter() - t0:.1f} s")
+    launches, _rps = phase_e2e(dev, card, world)
+    phase_10kb(dev, card, world)
 
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -379,9 +599,21 @@ def main() -> int:
          "replaces": "lamsa_tpu/ops/traceback_pallas.py:227",
          "launches": launches["traceback_row"], "max_abs_err": err["tb"],
          "ms": round(tot["tb"], 4), "plain_ms": round(tot["tb_plain"], 4)},
+        {"name": "banded_sw_adiag", "route": "cuda",
+         "source": "lamsa_tpu_torch/csrc/banded_sw_adiag.cu",
+         "replaces": "lamsa_tpu/ops/banded_sw_adiag.py:375",
+         "launches": launches["banded_sw_adiag"],
+         "max_abs_err": err_a["adp"], "ms": round(tot_a["adp"], 4),
+         "plain_ms": round(tot_a["adp_plain"], 4)},
+        {"name": "traceback_adiag", "route": "cuda",
+         "source": "lamsa_tpu_torch/csrc/traceback_adiag.cu",
+         "replaces": "lamsa_tpu/ops/banded_sw_adiag.py:607",
+         "launches": launches["traceback_adiag"],
+         "max_abs_err": err_a["atb"], "ms": round(tot_a["atb"], 4),
+         "plain_ms": round(tot_a["atb_plain"], 4)},
     ]
     log("kernels: ms / plain_ms = one call at each of the 9 buckets "
-        "(B = CHUNK_BY_M), summed")
+        "(B = CHUNK_BY_M), summed; launches = the config-1 run of phase 3")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

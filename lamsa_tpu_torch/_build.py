@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process (all
+started together) and the objects are linked into one shared library
 with a plain C interface (no PyTorch headers, so the build takes
 seconds), written to ``build/lamsa_tpu_torch/`` under the repository
 root on first use and loaded with ctypes. Wrappers pass raw device
@@ -23,7 +24,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "lamsa_tpu_torch")
 LIB_PATH = os.path.join(BUILD_DIR, "libkernels.so")
 LOG_PATH = os.path.join(BUILD_DIR, "build.log")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -37,6 +38,12 @@ _SIGNATURES = {
     "lamsa_banded_sw_row": (_P,) * 9 + (_I,) * 7 + (_P,),
     # dirs32, lo, start_i, start_d, steps, term, B, M, W, stream
     "lamsa_traceback_row": (_P,) * 6 + (_I,) * 3 + (_P,),
+    # q, t_win, m_len, n_len, lo, dirs32a, h_last,
+    # B, M, W, match, mismatch, gapo, gape, stream
+    "lamsa_banded_sw_adiag": (_P,) * 7 + (_I,) * 7 + (_P,),
+    # dirs32a, si, sd, hl, opbits, events, term0, n_ev,
+    # B, A4, V, M, EW, wide, e_slots, stream
+    "lamsa_traceback_adiag": (_P,) * 8 + (_I,) * 7 + (_P,),
 }
 
 
@@ -52,22 +59,50 @@ def _nvcc() -> str:
 
 def build() -> str:
     """Compile csrc/*.cu into LIB_PATH unless it is newer than every
-    source; returns the library path. The compiler's resource report
-    (-Xptxas -v: registers, shared memory, spills) goes to LOG_PATH."""
+    source; returns the library path. One nvcc per source runs in
+    parallel, then one link. The compilers' resource reports (-Xptxas
+    -v: registers, shared memory, spills) go to LOG_PATH."""
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     if os.path.exists(LIB_PATH) and os.path.getmtime(
             LIB_PATH) >= max(os.path.getmtime(s) for s in sources):
         return LIB_PATH
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *sources]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    with open(LOG_PATH, "w") as fh:
-        fh.write(" ".join(cmd) + "\n" + r.stdout + r.stderr)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-    os.replace(tmp, LIB_PATH)
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, os.path.basename(s)[:-3] + f".{tag}.o")
+            for s in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+            for s, o in zip(sources, objs)]
+    procs = []
+    try:
+        for cmd in cmds:
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True))
+        outs = [p.communicate() for p in procs]
+        tmp = f"{LIB_PATH}.{tag}"
+        link = [nvcc, "-shared", "-o", tmp, *objs]
+        log = [" ".join(c) + "\n" + o + e for c, (o, e) in zip(cmds, outs)]
+        bad = [(c, p.returncode, e) for c, p, (_, e) in
+               zip(cmds, procs, outs) if p.returncode != 0]
+        if not bad:
+            r = subprocess.run(link, capture_output=True, text=True)
+            log.append(" ".join(link) + "\n" + r.stdout + r.stderr)
+            if r.returncode != 0:
+                bad.append((link, r.returncode, r.stderr))
+        with open(LOG_PATH, "w") as fh:
+            fh.write("".join(log))
+        if bad:
+            cmd, rc, err = bad[0]
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{err}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     return LIB_PATH
 
 

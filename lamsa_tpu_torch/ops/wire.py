@@ -147,6 +147,14 @@ def global_lo(m, n, W):
     return lo - (lo & 1)
 
 
+def a_pad(M: int, W: int) -> int:
+    """Antidiagonal step count of an (M, W) bucket: a = i + j <= m + n
+    with m <= M and n <= M + W - 1, rounded up to a multiple of 128
+    (lamsa_tpu/ops/banded_sw_adiag.py a_pad). The antidiagonal direction
+    words are int32[B, a_pad / 4, W / 2]."""
+    return -(-(2 * M + W) // 128) * 128
+
+
 # ------------------------------------------------------- score extraction
 
 def extract_scores(h_last, m_len, n_len, lo):
@@ -225,15 +233,21 @@ def compact_encode(steps, term, si, sd, score):
     return torch.cat([opbits, evw, tail], dim=1)
 
 
-def collect_group(packed, M):
+def collect_group(packed, M, topdown=False):
     """Decode one chunk's compact wire (a tensor on any device) on the
     host with the native decoder. Returns (cigars, score, si, sd);
     cigars[b] is None where the event list overflowed on device (the
-    caller recomputes those)."""
+    caller recomputes those).
+
+    topdown: the antidiagonal walker writes D events row-DESCENDING from
+    slot 0; each instance's first n_ev slots are reversed here so the
+    shared row-ascending decoder applies unchanged
+    (lamsa_tpu/ops/banded_sw.py collect_group_pallas)."""
     from lamsa_tpu import native
 
     nw = M // 32
     Ew = compact_words(M)
+    wide = compact_wide(M)
     packed = packed.cpu().numpy()
     opbits = packed[:, :nw]
     events = packed[:, nw:nw + Ew]
@@ -243,6 +257,16 @@ def collect_group(packed, M):
     si = tail[:, 1] & 0xFFFF
     sd = tail[:, 1] >> 16
     score = tail[:, 2]
+    if topdown:
+        items = np.ascontiguousarray(events, np.int32)
+        if not wide:
+            items = items.view(np.uint16)
+        E = items.shape[1]
+        idx = np.arange(E)[None, :]
+        nv = n_ev[:, None]
+        perm = np.where(idx < nv, np.clip(nv - 1 - idx, 0, E - 1), idx)
+        items = np.take_along_axis(items, perm, axis=1)
+        events = items if wide else items.view(np.int32)
     cigars = native.decode_compact_batch(opbits, events, term0, si, n_ev,
-                                         wide=compact_wide(M))
+                                         wide=wide)
     return cigars, score, si, sd

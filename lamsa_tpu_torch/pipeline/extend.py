@@ -4,10 +4,13 @@ Counterpart of ``lamsa_tpu/pipeline/extend.py``. Every gap and end
 instance of a batch is enqueued as a device-gather descriptor, bucketed
 into static (M, W) shapes with the same first-fit rules (the bucket
 picks the band, so SAM stays identical), and run in chunks of at most
-``CHUNK_BY_M`` instances through ``ops/dp_chain.py`` (row DP kernel +
-row traceback kernel for every instance). Each chunk's compact wire is
-decoded natively on a small collect pool; instances whose device event
-list overflowed are recomputed on the host with ``native.banded_sw_tb``.
+``CHUNK_BY_M`` instances through ``ops/dp_chain.py``. As in the JAX
+package with ``ADIAG_ENABLED = True``, each bucket's global gap fills
+go in all-global chunks to the antidiagonal pair (``dp_tb_adiag_gather``)
+and its extensions to the row pair (``dp_tb_gather``), on every device.
+Each chunk's compact wire is decoded natively on a small collect pool
+(adiag chunks with topdown events); instances whose device event list
+overflowed are recomputed on the host with ``native.banded_sw_tb``.
 
 Chunks are launched unpadded (eager torch has no compile signatures to
 keep closed) on the current CUDA stream; the collect thread's ``.cpu()``
@@ -25,8 +28,9 @@ import torch
 
 from lamsa_tpu.io.sam import OP_D, OP_I, OP_M, cigar_pairs
 from lamsa_tpu.utils.timers import GLOBAL as STATS
-from lamsa_tpu_torch.ops.dp_chain import dp_tb_gather
-from lamsa_tpu_torch.ops.wire import collect_group, global_lo, pack_desc
+from lamsa_tpu_torch.ops.dp_chain import dp_tb_adiag_gather, dp_tb_gather
+from lamsa_tpu_torch.ops.wire import a_pad, collect_group, global_lo, \
+    pack_desc
 
 # (max query length, band width) buckets; instances pick the first
 # bucket that fits (lamsa_tpu/pipeline/extend.py BUCKETS).
@@ -50,6 +54,16 @@ CHUNK_BY_M = {(128, 128): 4096, (128, 256): 4096, (256, 128): 4096,
 # must stay below min(W)//2 - 8 so the band reaches the last DP row.
 EXT_MARGIN = 48
 
+# Route global gap fills to the antidiagonal pair at both band widths
+# (lamsa_tpu/pipeline/extend.py ADIAG_ENABLED); extensions stay on the
+# row pair. Tests flip this off to pin the row engine for globals.
+ADIAG_ENABLED = True
+
+
+def _adiag_bucket(M: int, W: int) -> bool:
+    return ADIAG_ENABLED and W in (128, 256)
+
+
 _EMPTY_CIGAR = np.empty(0, np.uint32)
 
 
@@ -69,12 +83,14 @@ def _run(op: int, ln: int) -> np.ndarray:
 _COLLECT_WORKERS = 4
 
 
-def _chunk_inflight_bytes(M: int, W: int) -> int:
+def _chunk_inflight_bytes(M: int, W: int, adiag: bool = False) -> int:
     """Estimated device workspace held by a chunk between launch and
-    collect: the direction storage dominates (1 byte/cell), plus window
-    and state intermediates."""
+    collect: the direction storage dominates (1 byte/cell: B*M*W for the
+    row dirs32, B*A*V for the antidiagonal dirs32a, A = a_pad(M, W),
+    V = W/2), plus window and state intermediates."""
     B = CHUNK_BY_M[(M, W)]
-    return B * M * W + (32 << 20)
+    cells = a_pad(M, W) * (W // 2) if adiag else M * W
+    return B * cells + (32 << 20)
 
 
 class _InflightLimiter:
@@ -250,10 +266,10 @@ class DpBatcher:
         return {k: np.concatenate([b[k] for b in batches])
                 for k in self._COLS}
 
-    def _launch(self, dispatch, M, W, futs):
+    def _launch(self, dispatch, M, W, adiag, futs):
         """Launch one chunk under the in-flight budget and hand its
         collect to the decode pool."""
-        est = _chunk_inflight_bytes(M, W)
+        est = _chunk_inflight_bytes(M, W, adiag)
         bud = self.inflight_budget
         if bud:
             _LIMITER.acquire(est, bud)
@@ -302,19 +318,29 @@ class DpBatcher:
                 if len(sel) == 0:
                     continue
                 sel = sel[np.argsort(-m[sel], kind="stable")]
+                # globals ride all-global antidiagonal chunks; glob is
+                # int64 0/1 once scalar adds were merged in
+                if _adiag_bucket(M, W):
+                    gsel = glob[sel].astype(bool)
+                    parts = [(sel[gsel], True), (sel[~gsel], False)]
+                else:
+                    parts = [(sel, False)]
                 chunk = CHUNK_BY_M[(M, W)]
-                for c0 in range(0, len(sel), chunk):
-                    sl = {k: v[sel[c0:c0 + chunk]] for k, v in c.items()}
-                    self._launch(
-                        lambda sl=sl, M=M, W=W: self._dispatch_cols(
-                            sl, M, W),
-                        M, W, futs)
+                for psel, adiag in parts:
+                    for c0 in range(0, len(psel), chunk):
+                        sl = {k: v[psel[c0:c0 + chunk]]
+                              for k, v in c.items()}
+                        self._launch(
+                            lambda sl=sl, M=M, W=W, adiag=adiag:
+                            self._dispatch_cols(sl, M, W, adiag),
+                            M, W, adiag, futs)
         for f in futs:          # all collects ran on the decode pool;
             f.result()          # propagate any worker exception
 
-    def _dispatch_cols(self, sl, M, W):
+    def _dispatch_cols(self, sl, M, W, adiag=False):
         """Pack a descriptor slice into the (K, 4) wire, copy it to the
-        device and launch the chunk (no wait)."""
+        device and launch the chunk on the antidiagonal pair (adiag: all
+        instances global) or the row pair (no wait)."""
         K = len(sl["m"])
         with STATS.stage(f"dp_build_{M}x{W}"):
             sl = dict(sl)
@@ -325,17 +351,25 @@ class DpBatcher:
                              sl["glob"], sl["bonus"])
         STATS.count(f"dp_cells_{M}x{W}", int(sl["m"].sum()) * W)
         STATS.count("dp_instances", K)
+        STATS.count(f"dp_instances_{M}x{W}", K)
+        if adiag:
+            STATS.count("dp_adiag_instances", K)
         with STATS.stage(f"dp_dispatch_{M}x{W}"):
             flat_dev, ref_dev = self.device_sources
             desc_dev = torch.from_numpy(desc).to(flat_dev.device)
-            dev = dp_tb_gather(flat_dev, ref_dev, desc_dev, M=M, W=W,
-                               scores=self.scores, zdrop=self.scores.zdrop)
-        return sl, M, W, dev
+            if adiag:
+                dev = dp_tb_adiag_gather(flat_dev, ref_dev, desc_dev, M=M,
+                                         W=W, scores=self.scores)
+            else:
+                dev = dp_tb_gather(flat_dev, ref_dev, desc_dev, M=M, W=W,
+                                   scores=self.scores,
+                                   zdrop=self.scores.zdrop)
+        return sl, M, W, dev, adiag
 
-    def _collect(self, sl, M, W, dev):
+    def _collect(self, sl, M, W, dev, topdown=False):
         from lamsa_tpu import native
         with STATS.stage(f"dp_collect_{M}x{W}"):
-            cigars, score, si, sd = collect_group(dev, M)
+            cigars, score, si, sd = collect_group(dev, M, topdown)
         K = len(sl["idx"])
         idxs = sl["idx"].tolist()
         los = sl["lo"].tolist()

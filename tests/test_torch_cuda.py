@@ -10,8 +10,9 @@ import pytest
 import torch
 
 from lamsa_tpu.config import ScoreParams
-from lamsa_tpu_torch.ops.testing import (make_batch, make_zdrop_batch,
-                                         unpack_rows)
+from lamsa_tpu_torch.ops.testing import (adiag_live, make_batch,
+                                         make_global_chunk, make_globals,
+                                         make_zdrop_batch, unpack_rows)
 
 torch.set_num_threads(1)
 
@@ -127,6 +128,66 @@ def test_dp_tb_gather_cuda_matches_cpu(dev):
     assert torch.equal(wires[0], wires[1])
 
 
+ADIAG_SHAPES = [(128, 128), (256, 256), (512, 128), (5120, 256)]
+
+
+def _adiag_batch(dev, M, W, seed):
+    rng = np.random.default_rng(seed)
+    B = 256 if M <= 512 else 16
+    return _on(dev, make_globals(rng, B, M, W, stress=True))
+
+
+@pytest.mark.parametrize("M,W", ADIAG_SHAPES)
+def test_banded_sw_adiag_kernel_matches_plain(dev, M, W):
+    """Even-lo global instances with indels and N codes: every direction
+    word below m + n and h_last through the -20000 floor."""
+    from lamsa_tpu_torch.ops import banded_sw_adiag as mod
+    q, t_win, m_len, n_len, lo = _adiag_batch(dev, M, W, 3 * M + W)
+    n0 = mod.LAUNCHES
+    got = mod.banded_sw_adiag(q, t_win, m_len, n_len, lo, **KW)
+    assert mod.LAUNCHES == n0 + 1
+    want = mod.banded_sw_adiag_plain(q, t_win, m_len, n_len, lo, **KW)
+    torch.cuda.synchronize()
+    live = adiag_live(m_len, n_len, got["dirs32a"].shape[1])
+    assert torch.equal(torch.where(live, got["dirs32a"], 0),
+                       torch.where(live, want["dirs32a"], 0))
+    assert torch.equal(got["h_last"].clamp(min=-20000),
+                       want["h_last"].clamp(min=-20000))
+
+
+@pytest.mark.parametrize("M,W", ADIAG_SHAPES)
+def test_traceback_adiag_kernel_matches_plain(dev, M, W):
+    """Walks from (m, n) over the kernel's dirs32a, overflowing
+    instances included."""
+    from lamsa_tpu_torch.ops.banded_sw_adiag import banded_sw_adiag
+    from lamsa_tpu_torch.ops import traceback_adiag as mod
+    q, t_win, m_len, n_len, lo = _adiag_batch(dev, M, W, 5 * M + W)
+    dirs = banded_sw_adiag(q, t_win, m_len, n_len, lo, **KW)["dirs32a"]
+    sd = (n_len - m_len - lo).contiguous()
+    hl = (lo >> 1).contiguous()
+    n0 = mod.LAUNCHES
+    got = mod.traceback_adiag(dirs, m_len, sd, hl, M=M)
+    assert mod.LAUNCHES == n0 + 1
+    want = mod.traceback_adiag_plain(dirs, m_len, sd, hl, M=M)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[3][-1]) == 0xFFFF
+
+
+def test_dp_tb_adiag_gather_cuda_matches_cpu(dev):
+    """A whole all-global descriptor chunk on the antidiagonal pair (gather
+    -> DP kernel -> walker kernel -> wire) on the card equals the CPU
+    path."""
+    from lamsa_tpu_torch.ops.dp_chain import dp_tb_adiag_gather
+    fw, rw, desc = make_global_chunk(np.random.default_rng(4), 512, 128,
+                                     60, 64)
+    wires = [dp_tb_adiag_gather(*_on(d, (fw, rw, desc)), M=512, W=128,
+                                scores=S).cpu()
+             for d in (dev, torch.device("cpu"))]
+    assert torch.equal(wires[0], wires[1])
+
+
 def test_wrappers_check_inputs_on_cuda(dev):
     from lamsa_tpu_torch.ops.banded_sw_row import banded_sw_row
     from lamsa_tpu_torch.ops.traceback_row import traceback_row
@@ -139,3 +200,9 @@ def test_wrappers_check_inputs_on_cuda(dev):
     dirs = torch.zeros((4, 32, 128), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         traceback_row(dirs, lo, m_len[:3].contiguous(), lo)
+    from lamsa_tpu_torch.ops.banded_sw_adiag import banded_sw_adiag
+    from lamsa_tpu_torch.ops.traceback_adiag import traceback_adiag
+    with pytest.raises(ValueError):
+        banded_sw_adiag(q, t_win, m_len, n_len.long(), lo, **KW)
+    with pytest.raises(ValueError):
+        traceback_adiag(dirs, lo, m_len[:3].contiguous(), lo, M=128)

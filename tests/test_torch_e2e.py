@@ -2,8 +2,10 @@
 versions) against the JAX package's Aligner on its CPU engine. SAM must
 be byte-identical (format_sam_record) on the tests/test_e2e.py worlds:
 noisy reads, SV reads, an inversion, 25% error (adaptive re-seed and
-merge-rechain fire), and a repeat with secondary alignments. Also: the
-port's align_reads equals its align_batch."""
+merge-rechain fire), and a repeat with secondary alignments. Global gap
+fills ride the antidiagonal pair (its plain versions here) and
+extensions the row pair, as in the JAX package. Also: the port's
+align_reads equals its align_batch."""
 
 import numpy as np
 import torch
@@ -26,9 +28,13 @@ def _sam(out):
     return [format_sam_record(r) for recs in out for r in recs]
 
 
-def _same_sam(ref, idx, cfg, reads):
+def _same_sam(ref, idx, cfg, reads, gap_fills=True):
+    """gap_fills: the world has global gap fills, which must ride the
+    antidiagonal pair."""
     want = _sam(JaxAligner(ref, idx, cfg).align_batch(reads))
+    STATS.reset()
     got = _sam(Aligner(ref, idx, cfg, device="cpu").align_batch(reads))
+    assert (STATS.counters.get("dp_adiag_instances", 0) > 0) == gap_fills
     assert len(got) == len(want) >= len(reads)
     for i, (g, w) in enumerate(zip(got, want)):
         assert g == w, f"record {i}:\n{g}\n{w}"
@@ -60,7 +66,8 @@ def test_inversion_sam_identical():
              f"chr1:{s+2*third}-{s+3*third}:+:{2*third}-{3*third}",
         seq=g[s:s + third] + sim._revcomp(g[s + third:s + 2 * third])
         + g[s + 2 * third:s + 3 * third])
-    sam = _same_sam(ref, idx, CFG, [read])
+    # three exact segments: extensions only, no gap fill
+    sam = _same_sam(ref, idx, CFG, [read], gap_fills=False)
     assert any("sv:Z:" in r and "inversion" in r for r in sam)
 
 
@@ -77,6 +84,7 @@ def test_high_error_adaptive_reseed_sam_identical():
     STATS.reset()
     got = _sam(Aligner(ref, idx, cfg, device="cpu").align_batch(reads))
     assert STATS.counters.get("seed_densified_reads", 0) > 0
+    assert STATS.counters.get("dp_adiag_instances", 0) > 0
     assert got == want
 
 

@@ -37,7 +37,22 @@ Phases (any failure exits non-zero without a result line):
      through align_reads with batch 256; prints reads/s, part recall
      (must be >= 0.99), DP cells and instances per bucket and the four
      kernels' launches, and checks the SAM of the first 8 timed reads
-     byte for byte against the CPU path.
+     byte for byte against the CPU path;
+  5. the whole-genome FM world: chr1 and chr2 of the config-4 genome of
+     tools/wholegenome_bench.py (2 x 129,166,666 bp, 8 N runs each, its
+     SEED), indexed with FmIndex.build on the card's host (build seconds
+     and device bytes printed). 128 warm + 256 timed 9-11 kb reads from
+     the tool's sample_reads through align_reads with batch 128: prints
+     reads/s, the stage breakdown (FM seeding in `seed_hits`, beside
+     `chain_hits`), DP instances per bucket and the four kernels'
+     launches (each must be > 0); part recall must be >= 0.99 and the
+     SAM of the first 8 timed reads must equal the CPU path's. Then 32
+     reads of 1-3 kb at 28% error under preset("ont"): the adaptive
+     re-seed with 1-edit tracks must fire on the card, and all 32 reads'
+     SAM must equal the CPU path's (part recall printed only). Last, one
+     retry-sized batch of seed_hits_fm with seg_quota and the 1-edit
+     tracks on cuda against the same call on the CPU (all four outputs
+     equal; both times printed).
 The last two lines are a JSON summary of the kernels and the result
 line {"ok": true, "device": {...}}.
 
@@ -61,6 +76,9 @@ N_SAM_CHECK = 32
 N_ENGINE_CHECK = 64
 N_SAM_CHECK_10KB = 8
 N_10KB, N_WARM_10KB = 768, 256      # bench.py's 10 kb section
+FM_N_CHROM = 2                      # of config-4's 24 chromosomes
+N_FM_WARM, N_FM_TIMED, FM_BATCH = 128, 256, 128
+N_HIGH_ERR = 32
 
 
 def fail(msg: str) -> None:
@@ -447,14 +465,7 @@ def phase_10kb(dev, card, world):
     chain_s = STATS.wall.get("chain_hits", 0.0)
     log(f"chain_hits loop: {chain_s:.3f} s = {chain_s / wall:.3f} of the "
         f"wall; dp_batch {STATS.wall.get('dp_batch', 0.0):.3f} s")
-    per_bucket = {k[len("dp_instances_"):]: (STATS.counters[k],
-                                             STATS.counters.get(
-                                                 "dp_cells_" + k[13:], 0))
-                  for k in sorted(STATS.counters)
-                  if k.startswith("dp_instances_")}
-    log("DP instances / cells per bucket: " + ", ".join(
-        f"{b}: {i} / {c}" for b, (i, c) in per_bucket.items())
-        + f"; adiag instances {STATS.counters.get('dp_adiag_instances', 0)}")
+    log_dp_buckets()
     log(f"kernel launches in the 10 kb run: {launches}")
     if min(launches.values()) <= 0:
         fail(f"a kernel was never launched in the 10 kb run: {launches}")
@@ -472,6 +483,227 @@ def phase_10kb(dev, card, world):
     log(f"10 kb SAM of the first {N_SAM_CHECK_10KB} timed reads "
         f"({len(sam_gpu)} records) is byte-identical between cuda and the "
         f"cpu plain path ({time.perf_counter() - t0:.1f} s on the cpu)")
+    return launches, rps
+
+
+def log_dp_buckets():
+    """DP instances and cells per bucket of the last STATS window."""
+    from lamsa_tpu.utils.timers import GLOBAL as STATS
+    per_bucket = {k[len("dp_instances_"):]: (STATS.counters[k],
+                                             STATS.counters.get(
+                                                 "dp_cells_" + k[13:], 0))
+                  for k in sorted(STATS.counters)
+                  if k.startswith("dp_instances_")}
+    log("DP instances / cells per bucket: " + ", ".join(
+        f"{b}: {i} / {c}" for b, (i, c) in per_bucket.items())
+        + f"; adiag instances {STATS.counters.get('dp_adiag_instances', 0)}")
+
+
+def wholegenome_ref(n_chrom):
+    """The first n_chrom chromosomes of tools/wholegenome_bench.py's
+    config-4 genome: the same SEED and draws, so chr1 and chr2 are that
+    genome's chr1 and chr2 (random bases, N_RUNS // N_CHROM runs of N of
+    100-2000 bp per chromosome)."""
+    from lamsa_tpu.io.refpack import PackedReference, _find_runs
+    from tools import wholegenome_bench as wg
+
+    rng = np.random.default_rng(wg.SEED)
+    per = wg.GENOME_LEN // wg.N_CHROM
+    parts = []
+    for _ in range(n_chrom):
+        codes = rng.integers(0, 4, per, dtype=np.uint8)
+        for _ in range(wg.N_RUNS // wg.N_CHROM):
+            p = int(rng.integers(0, per - 2000))
+            codes[p:p + int(rng.integers(100, 2000))] = 4
+        parts.append(codes)
+    codes = np.concatenate(parts)
+    return PackedReference(names=[f"chr{c + 1}" for c in range(n_chrom)],
+                           offsets=np.arange(n_chrom + 1, dtype=np.int64)
+                           * per, codes=codes,
+                           amb_runs=_find_runs(codes >= 4))
+
+
+def sample_window_reads(ref, n_reads, rng, *, read_len, sub, ins, dele,
+                        sv_fraction, prefix):
+    """tools/wholegenome_bench.py sample_reads with the read class as
+    arguments: one read simulated from each sampled 40 kb window (<= 1%
+    N, inside one chromosome), truth rebased to chromosome coordinates."""
+    from lamsa_tpu import sim
+    from lamsa_tpu.io.fasta import BASES, FastxRecord
+
+    reads = []
+    lut = np.frombuffer("".join(BASES).encode(), np.uint8)
+    offs = np.asarray(ref.offsets)
+    WIN = 40_000
+    while len(reads) < n_reads:
+        w0 = int(rng.integers(0, int(ref.total_len) - WIN))
+        ci = int(np.searchsorted(offs, w0, side="right")) - 1
+        if w0 + WIN > offs[ci + 1]:
+            continue
+        win = ref.codes[w0:w0 + WIN]
+        if (win >= 4).mean() > 0.01:
+            continue
+        (r,) = sim.simulate_reads(
+            rng, [FastxRecord(name="win",
+                              seq=lut[np.minimum(win, 4)].tobytes().decode())],
+            1, read_len=read_len, sub=sub, ins=ins, dele=dele,
+            sv_fraction=sv_fraction, name_prefix=f"{prefix}{len(reads)}")
+        pref, enc = r.name.split("|", 1)
+        parts = []
+        for ps in enc.split(";"):
+            p = sim.TruthPart.decode(ps)
+            p.ref_name = ref.names[ci]
+            p.ref_start += w0 - int(offs[ci])
+            p.ref_end += w0 - int(offs[ci])
+            parts.append(p.encode())
+        reads.append(FastxRecord(name=pref + "|" + ";".join(parts),
+                                 seq=r.seq, qual=r.qual))
+    return reads
+
+
+def phase_fm(dev, card):
+    """Phase 5: the whole-genome FM world on the card (see the module
+    docstring)."""
+    import torch
+
+    from lamsa_tpu.config import AlignConfig, ScoreParams, preset
+    from lamsa_tpu.eval import evaluate
+    from lamsa_tpu.index.fmindex import FmIndex
+    from lamsa_tpu.io.fasta import encode_seq
+    from lamsa_tpu.utils.timers import GLOBAL as STATS
+    from lamsa_tpu_torch.pipeline.aln import Aligner, align_reads
+    from lamsa_tpu_torch.pipeline.seeding import make_qpos_grid, \
+        seed_hits_fm
+    from tools import wholegenome_bench as wg
+
+    t0 = time.perf_counter()
+    ref = wholegenome_ref(FM_N_CHROM)
+    log(f"phase 5: whole-genome FM world, {ref.num_seqs} chromosomes of "
+        f"config-4, {ref.total_len} bp, {len(ref.amb_runs)} N runs "
+        f"(generated in {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    fmi = FmIndex.build(ref.codes)
+    log(f"FM index built on the host in {time.perf_counter() - t0:.1f} s "
+        f"(sa_rate {fmi.sa_rate}, {len(fmi.ssa_pos)} sampled SA entries)")
+    cfg = AlignConfig(scores=ScoreParams(), seed_step=10)   # the tool's
+    reads = wg.sample_reads(ref, N_FM_WARM + N_FM_TIMED,
+                            np.random.default_rng(wg.SEED + 1))
+
+    t0 = time.perf_counter()
+    aligner = Aligner(ref, fmi, cfg, device=dev)
+    st = aligner._state
+    fm_bytes = sum(t.nbytes for n, t in st.items() if n != "ref_words")
+    log(f"device state in {time.perf_counter() - t0:.2f} s: FM tensors "
+        f"{fm_bytes} B + ref_words {st['ref_words'].nbytes} B = "
+        f"{fm_bytes + st['ref_words'].nbytes} B on {card}; k={aligner.k}, "
+        f"sub1_k={aligner._sub1_k()}")
+    t0 = time.perf_counter()
+    aligner.align_batch(reads[:N_FM_WARM])
+    torch.cuda.synchronize()
+    log(f"warm batch ({N_FM_WARM} reads) {time.perf_counter() - t0:.2f} s")
+
+    timed = reads[N_FM_WARM:]
+    STATS.reset()
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    out = list(align_reads(ref, fmi, timed, cfg, batch_size=FM_BATCH,
+                           aligner=aligner))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    rps = len(timed) / wall
+    log(f"FM 10 kb: {len(timed)} reads in {wall:.3f} s = {rps:.2f} reads/s "
+        f"(align_reads, batch {FM_BATCH}) on {card}")
+    seed_s = STATS.wall.get("seed_hits", 0.0)
+    chain_s = STATS.wall.get("chain_hits", 0.0)
+    log(f"FM seeding (seed_hits, device-synchronized) {seed_s:.3f} s = "
+        f"{seed_s / wall:.3f} of the wall; chain_hits {chain_s:.3f} s = "
+        f"{chain_s / wall:.3f}; dp_batch "
+        f"{STATS.wall.get('dp_batch', 0.0):.3f} s")
+    log("stage breakdown (host seconds; seed_chain_device includes "
+        "seed_hits and chain_hits):\n" + STATS.report())
+    log_dp_buckets()
+    log(f"kernel launches in the FM run: {launches}")
+    if min(launches.values()) <= 0:
+        fail(f"a kernel was never launched in the FM run: {launches}")
+    ev = evaluate(out, timed)
+    log(f"FM accuracy: part_recall={ev.part_recall:.4f} "
+        f"read_accuracy={ev.read_accuracy:.4f} ({ev.summary()})")
+    if ev.part_recall < 0.99:
+        fail(f"FM part_recall {ev.part_recall:.4f} < 0.99")
+    t0 = time.perf_counter()
+    cpu = Aligner(ref, fmi, cfg, device="cpu")
+    sam_gpu = sam_lines(out[:N_SAM_CHECK_10KB])
+    check_sam(sam_gpu, sam_lines(cpu.align_batch(timed[:N_SAM_CHECK_10KB])),
+              f"FM cuda vs cpu on the first {N_SAM_CHECK_10KB} timed reads")
+    log(f"FM SAM of the first {N_SAM_CHECK_10KB} timed reads "
+        f"({len(sam_gpu)} records) is byte-identical between cuda and the "
+        f"cpu path ({time.perf_counter() - t0:.1f} s on the cpu)")
+
+    # 28% error: past the exact-piece envelope, the adaptive re-seed with
+    # the 1-edit variant tracks must run on the card
+    hreads = sample_window_reads(
+        ref, N_HIGH_ERR, np.random.default_rng(wg.SEED + 2),
+        read_len=(1000, 3000), sub=0.15, ins=0.07, dele=0.06,
+        sv_fraction=0.2, prefix="e28_")
+    ont = preset("ont")
+    STATS.reset()
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    out_h = Aligner(ref, fmi, ont, device=dev).align_batch(hreads)
+    torch.cuda.synchronize()
+    h_wall = time.perf_counter() - t0
+    h_launch = launch_counts()
+    dens = STATS.counters.get("seed_densified_reads", 0)
+    ev = evaluate(out_h, hreads)
+    log(f"28% error (ont preset): {N_HIGH_ERR} reads in {h_wall:.3f} s "
+        f"(incl. device state), seed_densified_reads={dens}, launches "
+        f"{h_launch}, part_recall={ev.part_recall:.4f} "
+        f"read_accuracy={ev.read_accuracy:.4f} (printed, not gated)")
+    if dens <= 0:
+        fail("the adaptive re-seed (1-edit tracks) never fired at 28% error")
+    t0 = time.perf_counter()
+    sam_h = sam_lines(out_h)
+    check_sam(sam_h, sam_lines(Aligner(ref, fmi, ont, device="cpu")
+                               .align_batch(hreads)),
+              f"FM 28% error cuda vs cpu on all {N_HIGH_ERR} reads")
+    log(f"28% error SAM of all {N_HIGH_ERR} reads ({len(sam_h)} records) is "
+        f"byte-identical between cuda and the cpu path "
+        f"({time.perf_counter() - t0:.1f} s on the cpu)")
+
+    # one retry sub-batch of seed_hits_fm at this scale, with the >1 Gb
+    # seg quota (which this genome does not reach) and the 1-edit tracks
+    L = aligner._bucket_len(max(len(r.seq) for r in timed[:FM_BATCH]))
+    step_d = max(2, cfg.seed_step // 2)
+    grid = make_qpos_grid(L, aligner.k, step_d).astype(np.int64)
+    k1 = aligner._sub1_k()
+    B = aligner._retry_cap(len(grid))
+    rc = np.full((B, L), 4, np.int64)
+    lens = np.zeros(B, np.int64)
+    for b, r in enumerate(timed[:B]):
+        c = np.frombuffer(encode_seq(r.seq), np.uint8)[:L]
+        rc[b, :len(c)] = c
+        lens[b] = len(c)
+    kw = dict(k=aligner.k, cands_per_seed=cfg.max_cands_per_seed,
+              max_hits=cfg.max_hits_per_read, sa_rate=fmi.sa_rate,
+              seg_quota=cfg.max_hits_per_read // 32,
+              sub1_cands=cfg.seed_1edit_cands, sub1_k=k1,
+              sub1_kinds=cfg.seed_1edit_kinds)
+    args_d = [torch.from_numpy(a).to(dev) for a in (rc, lens, grid)]
+    seed_hits_fm(*args_d, st, **kw)                       # warm
+    got, ms = cuda_ms_once(lambda: seed_hits_fm(*args_d, st, **kw))
+    t0 = time.perf_counter()
+    want = seed_hits_fm(*(torch.from_numpy(a) for a in (rc, lens, grid)),
+                        cpu._state, **kw)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    for n in ("qpos", "rpos", "strand", "valid"):
+        if not torch.equal(got[n].cpu(), want[n]):
+            fail(f"seed_hits_fm on cuda != cpu ({n}) with seg_quota "
+                 f"{kw['seg_quota']} and sub1_k {k1}")
+    log(f"seed_hits_fm, {B} reads of the {L} bucket on the step-{step_d} "
+        f"retry grid, seg_quota {kw['seg_quota']}, sub1_k {k1}: cuda = cpu "
+        f"on all four outputs ({int(want['valid'].sum())} valid hits); "
+        f"{ms:.2f} ms on the card, {cpu_ms:.1f} ms on the host cpu")
     return launches, rps
 
 
@@ -585,6 +817,7 @@ def main() -> int:
     log(f"config-1 world built in {time.perf_counter() - t0:.1f} s")
     launches, _rps = phase_e2e(dev, card, world)
     phase_10kb(dev, card, world)
+    phase_fm(dev, card)
 
     if "jax" in sys.modules:
         fail("jax was imported")

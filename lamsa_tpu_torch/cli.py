@@ -6,9 +6,11 @@
 
 The parser, ``index`` and ``merge`` are the JAX package's
 (``lamsa_tpu.cli``, which imports no JAX at module level); ``aln`` is
-this package's own and adds ``--device`` (default ``cuda``). Options
-whose machinery is not ported yet (several devices, multi-host shards,
---resume, the FM index) are refused with an error.
+this package's own and adds ``--device`` (default ``cuda``). It aligns
+with the index ``index`` built: the FM index (``index --fm``, the
+default above 200 Mb) or the k-mer table. Options whose machinery is
+not ported yet (several devices, multi-host shards, --resume) are
+refused with an error.
 """
 
 from __future__ import annotations
@@ -48,10 +50,9 @@ def cmd_aln(args) -> int:
         print(f"[lamsa_tpu_torch aln] no index at {idx_dir}; "
               f"run 'index {args.ref}' first", file=sys.stderr)
         return 1
-    if FmIndex.exists(idx_dir):
-        return _refuse("the FM-index backend")
     ref = PackedReference.load(idx_dir)
-    index = KmerIndex.load(idx_dir)
+    index = FmIndex.load(idx_dir) if FmIndex.exists(idx_dir) \
+        else KmerIndex.load(idx_dir)
 
     cfg = preset(args.preset)
     if args.band_width > 256:

@@ -1,10 +1,11 @@
-"""End-to-end alignment pipeline on PyTorch (k-mer index backend).
+"""End-to-end alignment pipeline on PyTorch (k-mer and FM index backends).
 
 Counterpart of ``lamsa_tpu/pipeline/aln.py``. Batches of reads flow
 through
 
-  device:  flat read upload (4-bit words), read-matrix gather, k-mer
-           seeding (pipeline/seeding.py), chaining (ops/chain.py)
+  device:  flat read upload (4-bit words), read-matrix gather, seeding
+           from the k-mer table or the FM index (pipeline/seeding.py,
+           ops/fm.py), chaining (ops/chain.py)
   host:    skeleton assembly + SV classification
            (lamsa_tpu/pipeline/skeleton.py, imported)
   device:  bucketed banded DP + traceback (pipeline/extend.py ->
@@ -29,7 +30,8 @@ import numpy as np
 import torch
 
 from lamsa_tpu.config import AlignConfig
-from lamsa_tpu.index.kmer import KmerIndex
+from lamsa_tpu.index.fmindex import FmIndex
+from lamsa_tpu.index.kmer import KmerIndex, auto_kmer
 from lamsa_tpu.io.fasta import encode_seq
 from lamsa_tpu.io.refpack import PackedReference
 from lamsa_tpu.io.sam import (FLAG_REVERSE, FLAG_SECONDARY,
@@ -39,12 +41,14 @@ from lamsa_tpu.io.sam import (FLAG_REVERSE, FLAG_SECONDARY,
 from lamsa_tpu.pipeline.skeleton import anchors_to_blocks, build_skeleton
 from lamsa_tpu.utils.timers import GLOBAL as STATS
 from lamsa_tpu_torch.ops.chain import chain_hits
+from lamsa_tpu_torch.ops.fm import edit1_tracks
 from lamsa_tpu_torch.ops.wire import gather_packed_run, pack_codes_words, \
     to_i32
 from lamsa_tpu_torch.pipeline.extend import (_MIN_SLACK, EXT_MARGIN,
                                              MAX_BUCKET_M, DpBatcher,
                                              compute_nm, md_tag)
-from lamsa_tpu_torch.pipeline.seeding import make_qpos_grid, seed_hits
+from lamsa_tpu_torch.pipeline.seeding import (make_qpos_grid, seed_hits,
+                                              seed_hits_fm)
 from lamsa_tpu_torch.pipeline.state import device_state
 
 _EXT_CAP = 2048          # longest end extension attempted (rest soft-clips)
@@ -141,18 +145,14 @@ class _PendingPart:
 
 
 class Aligner:
-    """Aligner over a PackedReference and a KmerIndex on one explicit
-    torch device ("cuda" runs the kernels, "cpu" their plain versions).
-    The native host library is required (compact decode, overflow
-    recompute)."""
+    """Aligner over a PackedReference and a KmerIndex (small and medium
+    genomes) or an FmIndex (whole genomes) on one explicit torch device
+    ("cuda" runs the kernels, "cpu" their plain versions). The native
+    host library is required (compact decode, overflow recompute)."""
 
-    def __init__(self, ref: PackedReference, index,
+    def __init__(self, ref: PackedReference, index: KmerIndex | FmIndex,
                  config: AlignConfig | None = None, device="cuda"):
         from lamsa_tpu import native
-        if not isinstance(index, KmerIndex):
-            raise NotImplementedError(
-                "lamsa_tpu_torch aligns with a k-mer index only; the "
-                "FM-index backend is not ported yet (ROADMAP.md, queue 1)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {self.device} requested but "
@@ -166,7 +166,15 @@ class Aligner:
         self.ref = ref
         self.index = index
         self.config = config or AlignConfig()
-        self.k = index.k
+        if isinstance(index, FmIndex):
+            self.seed_backend = "fm"
+            # the FM index is k-agnostic: the backward-search piece
+            # length grows with the genome (a random 13-mer occurs ~46x
+            # in 3.1 Gb; 16 restores ~1 expected random hit)
+            self.k = max(self.config.kmer, auto_kmer(ref.total_len))
+        else:
+            self.seed_backend = "kmer"
+            self.k = index.k
         self._state = device_state(ref, index, self.device)
         self._grids = {}
         self._inflight_budget = self._compute_inflight_budget() \
@@ -265,14 +273,31 @@ class Aligner:
 
     # -------------------------------------------------------- device stages
 
-    def _seed_chain_packed(self, rc, lens, grid, common):
+    def _seed_chain_packed(self, rc, lens, grid, common, sub1=False):
         """Seed + chain one (sub-)batch on the device; returns the packed
-        (3, B, H) int32 planes (_pack_hits_chain) as a host array."""
+        (3, B, H) int32 planes (_pack_hits_chain) as a host array.
+        sub1 adds the FM backend's 1-edit variant tracks (the adaptive
+        re-seed only)."""
+        cfg = self.config
         st = self._state
         kw = dict(k=common["k"], cands_per_seed=common["cands_per_seed"],
                   max_hits=common["max_hits"])
-        hits = seed_hits(rc, lens, grid, st["keys"], st["starts"],
-                         st["counts"], st["positions"], **kw)
+        with STATS.stage("seed_hits"):
+            if self.seed_backend == "kmer":
+                hits = seed_hits(rc, lens, grid, st["keys"], st["starts"],
+                                 st["counts"], st["positions"], **kw)
+            else:
+                quota = cfg.max_hits_per_read // 32 \
+                    if self._quota_on() else 0
+                hits = seed_hits_fm(
+                    rc, lens, grid, st, sa_rate=self.index.sa_rate,
+                    seg_quota=quota,
+                    sub1_cands=cfg.seed_1edit_cands if sub1 else 0,
+                    sub1_k=self._sub1_k() if sub1 else 0,
+                    sub1_kinds=cfg.seed_1edit_kinds, **kw)
+            if self.device.type == "cuda":
+                # the stage's seconds are the device's, not the enqueue's
+                torch.cuda.synchronize(self.device)
         return _pack_hits_chain(
             hits, weight=common["weight"], lookback=common["lookback"],
             max_dist=common["max_dist"],
@@ -307,8 +332,7 @@ class Aligner:
         if amin and cfg.seed_step >= 4:
             valid = ((packed[1] >> 20) & 1).astype(bool)
             fbest = np.where(valid, packed[2] & 0x7FFFF, 0).max(axis=1)
-            amin_eff = np.maximum(amin, lens_h // 256)
-            sparse = (fbest < amin_eff * self.k) \
+            sparse = (fbest < self._amin_eff(lens_h) * self.k) \
                 & (lens_h >= self.k + cfg.seed_step * amin)
             gw = cfg.adaptive_seed_gap_windows
             if gw:
@@ -341,20 +365,20 @@ class Aligner:
             if sparse.any():
                 STATS.count("seed_densified_reads", int(sparse.sum()))
                 # only the sparse reads re-seed, in sub-batches capped by
-                # an element budget (bounds the retry's device footprint)
+                # an element budget (bounds the retry's device footprint);
+                # on the FM backend the retry adds the 1-edit variant
+                # tracks, whose key/row arrays the budget counts too
                 sel = np.flatnonzero(sparse)
-                step_d = max(2, cfg.seed_step // 2)
-                grid_d = self._grid(L, step_d)
-                per_read = int(grid_d.shape[0]) * 2 \
-                    * cfg.max_cands_per_seed
-                cap = 1 << max(3, (_RETRY_BUDGET_ELEMS
-                                   // max(per_read, 1)).bit_length() - 1)
+                grid_d = self._grid(L, max(2, cfg.seed_step // 2))
+                sub1 = self.seed_backend == "fm"
+                cap = self._retry_cap(int(grid_d.shape[0]))
                 packed = packed.copy()
                 for c0 in range(0, len(sel), cap):
                     chunk = sel[c0:c0 + cap]
                     ci = torch.from_numpy(chunk).to(dev)
                     dense = self._seed_chain_packed(rc[ci], lens[ci],
-                                                    grid_d, common)
+                                                    grid_d, common,
+                                                    sub1=sub1)
                     # union-merge: the retry only ADDS evidence
                     packed[:, chunk] = self._merge_rechain(
                         packed[:, chunk], dense, common)
@@ -420,6 +444,48 @@ class Aligner:
             hits, weight=common["weight"], lookback=common["lookback"],
             max_dist=common["max_dist"],
             diag_slack=common["diag_slack"]).cpu().numpy()
+
+    def _retry_cap(self, n_windows: int) -> int:
+        """Reads per adaptive re-seed sub-batch: the largest power of two
+        (at least 8) whose candidate arrays, 2 strands x n_windows x the
+        candidates per window (plus the 1-edit tracks' on the FM
+        backend), stay within _RETRY_BUDGET_ELEMS."""
+        cfg = self.config
+        per_read = n_windows * 2 * cfg.max_cands_per_seed
+        if self.seed_backend == "fm" and cfg.seed_1edit_cands:
+            T = len(edit1_tracks(self._sub1_k(), cfg.seed_1edit_kinds)[0])
+            per_read += n_windows * 2 * T * cfg.seed_1edit_cands
+        return 1 << max(3, (_RETRY_BUDGET_ELEMS
+                            // max(per_read, 1)).bit_length() - 1)
+
+    def _quota_on(self) -> bool:
+        """Whole-genome hit budgeting (seed_hits_fm seg_quota =
+        max_hits_per_read // 32): the FM backend above 1 Gb, where a
+        random k-mer still hits ~0.7x per strand and would flood
+        max_hits on long reads."""
+        return self.seed_backend == "fm" \
+            and self.ref.total_len > 1_000_000_000
+
+    def _amin_eff(self, lens_h):
+        """Anchors' worth of best-chain score below which a read
+        re-seeds: adaptive_seed_min_anchors, scaled up with read length
+        (len // 256) unless the seg quota is on, where quota sampling
+        caps a healthy read's best chain below a scaled bar
+        (lamsa_tpu/pipeline/aln.py _seed_and_chain has the
+        measurement)."""
+        amin = self.config.adaptive_seed_min_anchors
+        return amin if self._quota_on() else np.maximum(amin, lens_h // 256)
+
+    def _sub1_k(self) -> int:
+        """Piece length for the 1-edit variant tracks: smallest k1 >= k
+        whose ~8*k1 variant patterns expect < 0.15 random hits per
+        window, so variant noise cannot flood max_hits (15 at 1 Mb, 18
+        at 64 Mb, 21 at GRCh38 scale)."""
+        t = max(int(self.ref.total_len), 1)
+        k1 = self.k
+        while 8 * k1 * t / (4 ** k1) > 0.15 and k1 < 24:
+            k1 += 1
+        return k1
 
     def _grid(self, L, step):
         """qpos sample grid per (bucket length, step), cached on the
@@ -735,7 +801,7 @@ class Aligner:
         return int(max(0, min(60, round(m))))
 
 
-def align_reads(ref: PackedReference, index: KmerIndex, reads,
+def align_reads(ref: PackedReference, index: KmerIndex | FmIndex, reads,
                 config: AlignConfig | None = None,
                 batch_size: int | None = None,
                 aligner: "Aligner | None" = None,

@@ -1,18 +1,23 @@
 """Device residency: the index and reference tensors an Aligner keeps.
 
-The JAX package's "parameters" are a numpy ``KmerIndex`` and a
-``PackedReference``; ``lamsa_tpu.pipeline.aln.Aligner.__init__`` turns
-them into device arrays. ``device_state`` builds the same arrays as
-torch tensors on an explicit device:
+The JAX package's "parameters" are a numpy ``KmerIndex`` or ``FmIndex``
+and a ``PackedReference``; ``lamsa_tpu.pipeline.aln.Aligner.__init__``
+turns them into device arrays. ``device_state`` builds the same arrays
+as torch tensors on an explicit device:
 
   ref_words   int32[ceil(len/8)]  4-bit packed reference codes
-  positions   int64[P]            k-mer occurrence positions (uint32 values)
-  keys        int64[K]            sorted k-mer keys
-  starts / counts int32[K]        each key's slice of positions
+  k-mer index:
+    positions   int64[P]          k-mer occurrence positions (uint32 values)
+    keys        int64[K]          sorted k-mer keys
+    starts / counts int32[K]      each key's slice of positions
+  FM index (ops/fm.py fm_device_state):
+    blk, mblk, ssa_pos            int32 uint32 bit patterns
+    C, primary, n_rows            int64
 
-Seeding binary-searches the sorted keys on every device. The JAX
-package's dense 4^k direct-address tables work around slow gathers on
-the TPU; on the H100 they gave no end-to-end gain (PERF.md).
+Every value is a tensor, so the resident bytes are the sum of their
+nbytes. k-mer seeding binary-searches the sorted keys on every device.
+The JAX package's dense 4^k direct-address tables work around slow
+gathers on the TPU; on the H100 they gave no end-to-end gain (PERF.md).
 """
 
 from __future__ import annotations
@@ -20,17 +25,24 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lamsa_tpu.index.fmindex import FmIndex
+from lamsa_tpu_torch.ops.fm import fm_device_state
 from lamsa_tpu_torch.ops.wire import pack_codes_words
 
+
 def device_state(ref, index, device) -> dict:
-    """Device tensors for a PackedReference + KmerIndex (see module
-    docstring for the layout)."""
+    """Device tensors for a PackedReference + KmerIndex or FmIndex (see
+    module docstring for the layout)."""
     dev = torch.device(device)
-    return {
-        "ref_words": torch.from_numpy(pack_codes_words(ref.codes)).to(dev),
+    st = {"ref_words": torch.from_numpy(pack_codes_words(ref.codes)).to(dev)}
+    if isinstance(index, FmIndex):
+        st.update(fm_device_state(index, dev))
+        return st
+    st.update({
         "positions": torch.from_numpy(
             index.positions.astype(np.int64)).to(dev),
         "keys": torch.from_numpy(index.keys.astype(np.int64)).to(dev),
         "starts": torch.from_numpy(index.starts.astype(np.int32)).to(dev),
         "counts": torch.from_numpy(index.counts.astype(np.int32)).to(dev),
-    }
+    })
+    return st

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels against their plain torch versions, on the
-card. Every test here is marked ``cuda`` and skips without a CUDA
-device; on a machine with one (and without JAX) run them with
+"""The port's CUDA kernels against their plain torch versions, and the
+FM seeding ops on the card against the CPU. Every test here is marked
+``cuda`` and skips without a CUDA device; on a machine with one (and
+without JAX) run them with
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
@@ -206,3 +207,82 @@ def test_wrappers_check_inputs_on_cuda(dev):
         banded_sw_adiag(q, t_win, m_len, n_len.long(), lo, **KW)
     with pytest.raises(ValueError):
         traceback_adiag(dirs, lo, m_len[:3].contiguous(), lo, M=128)
+
+
+@pytest.fixture(scope="module")
+def fm_world():
+    """A 60 kb genome with a tandem repeat, its FM index (sa_rate 16)
+    and 10 reads of 300-900 bp on both strands with substitutions."""
+    from lamsa_tpu.index.fmindex import FmIndex
+    rng = np.random.default_rng(21)
+    unit = rng.integers(0, 4, 40).astype(np.uint8)
+    codes = np.concatenate([rng.integers(0, 4, 30000).astype(np.uint8),
+                            np.tile(unit, 40),
+                            rng.integers(0, 4, 28400).astype(np.uint8)])
+    L = 1024
+    reads = np.full((10, L), 4, np.int64)
+    lens = rng.integers(300, 900, 10)
+    for b in range(10):
+        s0 = 29900 if b < 2 else int(rng.integers(0, len(codes) - 1000))
+        frag = codes[s0:s0 + lens[b]].astype(np.int64)
+        if b % 2:
+            frag = (3 - frag[::-1]) & 3
+        frag[rng.integers(0, lens[b], lens[b] // 8)] ^= 1
+        reads[b, :lens[b]] = frag
+    return codes, FmIndex.build(codes), reads, lens
+
+
+def _fm_on(dev, fmi):
+    from lamsa_tpu_torch.ops.fm import fm_device_state
+    return fm_device_state(fmi, dev)
+
+
+def test_fm_search_and_resolve_cuda_matches_cpu(dev, fm_world):
+    """backward_search (exact and 1-edit) and resolve_rows on the card
+    equal the CPU."""
+    from lamsa_tpu_torch.ops import fm
+    codes, fmi, _reads, _lens = fm_world
+    rng = np.random.default_rng(5)
+    k = 13
+    starts = rng.integers(0, len(codes) - k, (16, 64))
+    win = codes[starts[..., None] + np.arange(k)].astype(np.int64)
+    win[0, :8] = codes[29900:29900 + k]                 # the repeat
+    win[1, 3, 5] = 4
+    ok = (win < 4).all(axis=2)
+    rows = rng.integers(0, fmi.n + 1, 4096)
+    valid = rng.random(4096) < 0.9
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        st = _fm_on(d, fmi)
+        w, o = torch.from_numpy(win).to(d), torch.from_numpy(ok).to(d)
+        r = fm.backward_search(w, o, st, k)
+        r += fm.backward_search_1edit(w, o, st, k, kinds="sdi")
+        r += (fm.resolve_rows(torch.from_numpy(rows).to(d),
+                              torch.from_numpy(valid).to(d), st,
+                              fmi.sa_rate),)
+        outs.append([x.cpu() for x in r])
+    for g, w_ in zip(*outs):
+        assert torch.equal(g, w_)
+    assert (outs[1][1] - outs[1][0]).max() > 16
+
+
+@pytest.mark.parametrize("extra", [{}, {"seg_quota": 4, "sub1_cands": 2,
+                                       "sub1_k": 15}],
+                         ids=["plain", "quota_sub1"])
+def test_seed_hits_fm_cuda_matches_cpu(dev, fm_world, extra):
+    from lamsa_tpu_torch.pipeline.seeding import make_qpos_grid, \
+        seed_hits_fm
+    _codes, fmi, reads, lens = fm_world
+    k = 13
+    grid = make_qpos_grid(reads.shape[1], k, 5).astype(np.int64)
+    kw = dict(k=k, cands_per_seed=16, max_hits=256, sa_rate=fmi.sa_rate,
+              **extra)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        h = seed_hits_fm(*(torch.from_numpy(a).to(d)
+                           for a in (reads, lens, grid)),
+                         _fm_on(d, fmi), **kw)
+        outs.append({n: v.cpu() for n, v in h.items()})
+    for n in ("qpos", "rpos", "strand", "valid"):
+        assert torch.equal(outs[0][n], outs[1][n]), n
+    assert outs[1]["valid"].sum() > 0

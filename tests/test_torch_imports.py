@@ -18,7 +18,8 @@ PORT_MODULES = [
     "lamsa_tpu_torch", "lamsa_tpu_torch._build", "lamsa_tpu_torch.cli",
     "lamsa_tpu_torch.ops.banded_sw_adiag",
     "lamsa_tpu_torch.ops.banded_sw_row", "lamsa_tpu_torch.ops.chain",
-    "lamsa_tpu_torch.ops.dp_chain", "lamsa_tpu_torch.ops.testing",
+    "lamsa_tpu_torch.ops.dp_chain", "lamsa_tpu_torch.ops.fm",
+    "lamsa_tpu_torch.ops.testing",
     "lamsa_tpu_torch.ops.traceback_adiag",
     "lamsa_tpu_torch.ops.traceback_row", "lamsa_tpu_torch.ops.wire",
     "lamsa_tpu_torch.pipeline.aln",

@@ -23,26 +23,35 @@ Phases (any failure exits non-zero without a result line):
         (opbits, events, term0, n_ev; both stress instances must
         overflow, the 35-base run only where events are narrow); adiag
         DP and walker times beside the row pair's on the same instances;
-  3. end to end: the config-1 world of bench.py (4.6 Mb genome, k=13,
-     512 reads of 1-5 kb, 15% SV reads) through align_reads on the card
-     with batch size 256, after one warm batch. Prints reads/s, the
-     stage breakdown with the chain_hits loop's share, the four kernels'
-     launch counts in that run (each must be > 0), part recall / read
-     accuracy (part recall must be >= 0.99), checks the SAM of the first
-     32 reads byte for byte against the port's CPU path (the plain
-     versions), and the SAM of the first 64 reads on the card with
-     ADIAG_ENABLED False and True (byte-identical);
-  4. the 10 kb world of bench.py's 10 kb section (768 reads of 9-11 kb
-     on the config-1 genome): warm on 256 reads, time the other 512
+     c. both DP kernels on chunks of 1 and 37 instances at (5120, 256)
+        and (128, 128), each ending in a long deletion whose E chain
+        crosses every thread edge, plus zdrop extensions (exact);
+  3. end to end: the config-1 world (lamsa_tpu_torch/worlds.py, a copy
+     of bench.py's: 4.6 Mb genome, k=13, 512 reads of 1-5 kb, 15% SV
+     reads) through align_reads on the card with batch size 256, after
+     one warm batch. Prints reads/s, the stage breakdown with the
+     chain_hits loop's share, the four kernels' launch counts in that
+     run (each must be > 0), then each kernel's device time in one more
+     pass under torch.profiler (e2e_ms) and each DP wrapper's (the
+     kernel, the instance order's sort and the counter's memset),
+     part recall / read accuracy
+     (part recall must be >= 0.99), checks the SAM of the first 32 reads
+     byte for byte against the port's CPU path (the plain versions), and
+     the SAM of the first 64 reads on the card with ADIAG_ENABLED False
+     and True (byte-identical);
+  4. the 10 kb world of bench.py's 10 kb section (worlds.reads_10kb: 768
+     reads of 9-11 kb on the config-1 genome): warm on 256 reads, time
+     the other 512
      through align_reads with batch 256; prints reads/s, part recall
      (must be >= 0.99), DP cells and instances per bucket and the four
      kernels' launches, and checks the SAM of the first 8 timed reads
      byte for byte against the CPU path;
   5. the whole-genome FM world: chr1 and chr2 of the config-4 genome of
      tools/wholegenome_bench.py (2 x 129,166,666 bp, 8 N runs each, its
-     SEED), indexed with FmIndex.build on the card's host (build seconds
-     and device bytes printed). 128 warm + 256 timed 9-11 kb reads from
-     the tool's sample_reads through align_reads with batch 128: prints
+     SEED; constants and sample_reads copied into worlds.py), indexed
+     with FmIndex.build on the card's host (build seconds and device
+     bytes printed). 128 warm + 256 timed 9-11 kb reads from the tool's
+     sample_reads through align_reads with batch 128: prints
      reads/s, the stage breakdown (FM seeding in `seed_hits`, beside
      `chain_hits`), DP instances per bucket and the four kernels'
      launches (each must be > 0); part recall must be >= 0.99 and the
@@ -53,8 +62,12 @@ Phases (any failure exits non-zero without a result line):
      retry-sized batch of seed_hits_fm with seg_quota and the 1-edit
      tracks on cuda against the same call on the CPU (all four outputs
      equal; both times printed).
-The last two lines are a JSON summary of the kernels and the result
-line {"ok": true, "device": {...}}.
+The script imports nothing of JAX, of the JAX package, of bench.py or of
+tools/, and fails if any of them was loaded. The last two lines are a
+JSON summary of the kernels (per kernel: launches, max_abs_err, ms and
+plain_ms summed over the 9 phase-2 buckets, bound_ms with bound_by,
+library_ms null, e2e_ms) and the result line
+{"ok": true, "device": {...}}.
 
 --profile runs set-up and then, on the same world, three timed
 align_reads passes and one under torch.profiler (device busy share,
@@ -102,6 +115,195 @@ def cuda_ms(fn, reps: int) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+KERNEL_NAMES = {        # kernel name fragments in a device trace
+    "banded_sw_row": "row_dp::kernel",
+    "traceback_row": "traceback_row_kernel",
+    "banded_sw_adiag": "adiag_dp::kernel",
+    "traceback_adiag": "traceback_adiag_kernel",
+}
+DP_WRAPPERS = ("banded_sw_row", "banded_sw_adiag")
+
+
+def profiled(fn, ok, what, tries=3):
+    """Run fn() under torch.profiler: (device events, host events), each
+    a list of (start us, end us, name), with the device's
+    synchronization records (waits, not work) left out. The profiler now
+    and then returns a trace without the device events; such a run is
+    repeated, at most `tries` times, until ok(device events) holds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev, host = [], []
+        for e in prof.events():
+            ev = (e.time_range.start, e.time_range.end, e.name)
+            if e.device_type == DeviceType.CUDA:
+                if "sync" not in e.name.lower():
+                    dev.append(ev)
+            elif e.device_type == DeviceType.CPU:
+                host.append(ev)
+        if ok(dev):
+            return dev, host
+        log(f"profiler trace of {what} lacks device events "
+            f"({len(dev)}: {sorted({n[:50] for _, _, n in dev})[:6]}); again")
+    fail(f"{tries} profiler traces of {what} lacked device events")
+
+
+def kernel_device_ms(fn):
+    """Run fn() once under torch.profiler. Returns (per kernel, its summed
+    device ms; per DP wrapper, the device work its calls ran, by name:
+    the kernel, longest_first's sort and the counter's memset, as
+    (ms, count)). To tell the wrappers' work apart, each DP wrapper call
+    that the pipeline makes (through ops/dp_chain.py) is bracketed on its
+    stream by two marker kernels (torch.cuda._sleep, whose kernel is
+    spin_kernel), and the device work
+    between a pair of markers is that call's, except the copies that the
+    collect threads put on the same stream meanwhile."""
+    import torch
+
+    from lamsa_tpu_torch.ops import dp_chain
+    orig = {n: getattr(dp_chain, n) for n in DP_WRAPPERS}
+    order = []                  # the wrappers called, in launch order
+
+    def bracketed(name, f):
+        def call(*a, **k):
+            torch.cuda._sleep(1)
+            out = f(*a, **k)
+            torch.cuda._sleep(1)
+            order.append(name)
+            return out
+        return call
+
+    def all_kernels(dev):
+        return all(any(frag in n for _, _, n in dev)
+                   for frag in KERNEL_NAMES.values())
+
+    def run():
+        order.clear()
+        fn()
+
+    for n, f in orig.items():
+        setattr(dp_chain, n, bracketed(n, f))
+    try:
+        dev, _ = profiled(run, all_kernels, "a config-1 pass")
+    finally:
+        for n, f in orig.items():
+            setattr(dp_chain, n, f)
+    dev.sort()
+    marks = [i for i, (_, _, n) in enumerate(dev) if "spin_kernel" in n]
+    if len(marks) != 2 * len(order):
+        names = {}
+        for _, _, n in dev:
+            names[n[:50]] = names.get(n[:50], 0) + 1
+        fail(f"{len(marks)} marker kernels for {len(order)} DP wrapper "
+             f"calls; device events by name: "
+             f"{sorted(names.items(), key=lambda kv: -kv[1])[:12]}")
+    kern = dict.fromkeys(KERNEL_NAMES, 0.0)
+    for s, e, name in dev:
+        for k, frag in KERNEL_NAMES.items():
+            if frag in name:
+                kern[k] += (e - s) / 1e3
+    wrap = {w: {} for w in DP_WRAPPERS}     # wrapper -> name -> (ms, n)
+    for c, w in enumerate(order):
+        for s, e, name in dev[marks[2 * c] + 1:marks[2 * c + 1]]:
+            if not name.startswith("Memcpy"):
+                ms, n = wrap[w].get(name, (0.0, 0))
+                wrap[w][name] = (ms + (e - s) / 1e3, n + 1)
+    return kern, wrap
+
+
+def dp_kernel_ms(calls, reps=3):
+    """calls: (fn, kernel name fragment) pairs, each fn launching one
+    such kernel. Device ms of each call's kernel, the least of reps
+    rounds, from one profiler trace: the calls run in order on one
+    stream, so the k-th kernel of the trace is the k-th launch."""
+    import torch
+    frags = [f for _, f in calls]
+    for fn, _ in calls:
+        fn()
+    torch.cuda.synchronize()
+
+    def launches(dev):
+        return [(s, e) for s, e, n in sorted(dev)
+                if any(f in n for f in frags)]
+
+    def run():
+        for _ in range(reps):
+            for fn, _ in calls:
+                fn()
+
+    dev, _ = profiled(run, lambda d: len(launches(d)) == reps * len(calls),
+                      "the DP kernels' fixed-work calls")
+    ms = [(e - s) / 1e3 for s, e in launches(dev)]
+    return [min(ms[r * len(calls) + i] for r in range(reps))
+            for i in range(len(calls))]
+
+
+# ------------------------------------------------------------------ bounds
+#
+# The least time the card could take for a kernel's work: the larger of
+# its bytes (each input read once, each output written once) over the
+# HBM rate and its integer operations over the INT32 issue rate. H100
+# SXM (NVIDIA's data sheet and Hopper white paper): 3.35 TB/s, and 132
+# SMs x 64 INT32 lanes x 1.98 GHz boost = 16.7 T int32 ops/s. A band
+# cell of either DP costs OPS_PER_CELL integer operations (H, E, F, the
+# score and the direction bits); the cells are those this run's
+# instances need (rows <= m, or antidiagonal steps <= m + n).
+
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+OPS_PER_CELL = 12
+
+
+def add_bound(acc, nbytes, nops):
+    """Accumulate one call's bound into acc (ms, bytes_ms, ops_ms)."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = nops / INT32_OPS_PER_S * 1e3
+    acc["bound_ms"] += max(b_ms, o_ms)
+    acc["bytes_ms"] += b_ms
+    acc["ops_ms"] += o_ms
+
+
+def new_bound():
+    return {"bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
+
+
+def nbytes(*ts):
+    return sum(int(t.nbytes) for t in ts)
+
+
+def row_dp_work(args, W):
+    """(bytes, ops) of one row-DP call: the windows and lengths read,
+    the direction words of rows <= m, h_last and best written."""
+    import torch
+    q, m_len = args[0], args[2]
+    B = q.shape[0]
+    words = int(((m_len.to(torch.int64) + 3) // 4).sum()) * W
+    return (nbytes(*args) + 4 * words + 4 * B * (W + 3),
+            OPS_PER_CELL * int(m_len.sum()) * W)
+
+
+def adiag_dp_work(args, W):
+    """(bytes, ops) of one adiag-DP call: steps a <= m + n of V lanes."""
+    import torch
+    q, m_len, n_len = args[0], args[2], args[3]
+    B = q.shape[0]
+    steps = (m_len + n_len).to(torch.int64)
+    words = int(((steps + 3) // 4).sum()) * (W // 2)
+    return (nbytes(*args) + 4 * words + 4 * B * W,
+            OPS_PER_CELL * int(steps.sum()) * (W // 2))
+
+
+def walk_work(ins, outs, m_len, n_len):
+    """(bytes, ops) of one walk: its small inputs, one direction byte
+    per path step (at most m + n), and its outputs written once."""
+    return (nbytes(*ins) + int((m_len + n_len).sum()) + nbytes(*outs), 0)
 
 
 # ----------------------------------------------------------------- phases
@@ -154,6 +356,7 @@ def phase_kernels(dev, scores, rng):
               gapo=scores.gap_open, gape=scores.gap_ext)
     err = {"dp": 0, "tb": 0}
     tot = {"dp": 0.0, "dp_plain": 0.0, "tb": 0.0, "tb_plain": 0.0}
+    bnd = {"dp": new_bound(), "tb": new_bound()}
 
     def diff(a, b):
         return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) \
@@ -221,6 +424,9 @@ def phase_kernels(dev, scores, rng):
                      f"(max abs err {e})")
             err["tb"] = max(err["tb"], e)
         tb_ms = cuda_ms(lambda: traceback_row(*walks[0]), 3)
+        add_bound(bnd["dp"], *row_dp_work(cases["global"], W))
+        add_bound(bnd["tb"], *walk_work(
+            walks[0][1:], traceback_row(*walks[0]), m_len, n_len))
         log(f"{M:>5} {W:>4} {B:>5}  {dp_ms:9.3f} {dp_plain_ms:9.3f}  "
             f"{tb_ms:9.3f} {tb_plain_ms:9.3f}  {changed}/{B}")
         tot["dp"] += dp_ms
@@ -231,7 +437,7 @@ def phase_kernels(dev, scores, rng):
         f"{len(BUCKETS)} buckets (global instances; N-block extensions "
         f"with zdrop off and on, zdrop firing in each bucket; global, "
         f"extension-best and row-0 traceback starts)")
-    return err, tot
+    return err, tot, bnd
 
 
 def phase_adiag(dev, scores, rng):
@@ -253,6 +459,7 @@ def phase_adiag(dev, scores, rng):
               gapo=scores.gap_open, gape=scores.gap_ext)
     err = {"adp": 0, "atb": 0}
     tot = {"adp": 0.0, "adp_plain": 0.0, "atb": 0.0, "atb_plain": 0.0}
+    bnd = {"adp": new_bound(), "atb": new_bound()}
 
     def diff(a, b):
         return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) \
@@ -306,6 +513,8 @@ def phase_adiag(dev, scores, rng):
         rdp_ms = cuda_ms(lambda: banded_sw_row(*args, zero, **kw), 3)
         rwalk = (row["dirs32"], lo, m_len.clone(), sd)
         atb_ms = cuda_ms(lambda: traceback_adiag(*walk, M=M), 3)
+        add_bound(bnd["adp"], *adiag_dp_work(args, W))
+        add_bound(bnd["atb"], *walk_work(walk[1:], tg, m_len, n_len))
         rtb_ms = cuda_ms(lambda: traceback_row(*rwalk), 3)
         log(f"{M:>5} {W:>4} {B:>5}  {adp_ms:9.3f} {rdp_ms:9.3f} "
             f"{dp_plain_ms:9.3f}  {atb_ms:9.3f} {rtb_ms:9.3f} "
@@ -317,7 +526,133 @@ def phase_adiag(dev, scores, rng):
     log(f"phase 2b ok: the antidiagonal pair equals its plain versions at "
         f"all {len(BUCKETS)} buckets, with event overflow in each; global "
         f"scores equal the row DP's")
-    return err, tot
+    return err, tot, bnd
+
+
+def phase_edges(dev, scores, rng):
+    """Phase 2c: both DP kernels against their plain versions on small
+    chunks (B = 1 and 37, fewer instances than the card has SMs, so the
+    persistent warps' scheduler runs out of work at once) at (5120, 256)
+    and (128, 128); the last instance of each carries a W/2 - 16 base
+    deletion whose E chain crosses every thread edge of the lane split
+    on its way, and one chunk per shape is N-block extensions with
+    zdrop. Returns the max abs errors (must be 0)."""
+    import torch
+
+    from lamsa_tpu_torch.ops.banded_sw_adiag import (banded_sw_adiag,
+                                                     banded_sw_adiag_plain)
+    from lamsa_tpu_torch.ops.banded_sw_row import (banded_sw_row,
+                                                   banded_sw_row_plain)
+    from lamsa_tpu_torch.ops.testing import (adiag_live, edge_batch,
+                                             make_zdrop_batch, unpack_rows)
+
+    kw = dict(match=scores.match, mismatch=scores.mismatch,
+              gapo=scores.gap_open, gape=scores.gap_ext)
+
+    def diff(a, b):
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) \
+            if a.numel() else 0
+
+    def on_dev(arrs):
+        return [torch.from_numpy(a).to(dev) for a in arrs]
+
+    err = {"dp": 0, "adp": 0}
+    for M, W in ((5120, 256), (128, 128)):
+        for B in (1, 37):
+            q, t, m, n, lo = on_dev(edge_batch(rng, B, M, W))
+            rows = [(q, t, m, n, lo, torch.zeros_like(m))]
+            if B > 1:
+                rows.append(tuple(on_dev(make_zdrop_batch(rng, B, M, W))))
+            for args in rows:
+                got = banded_sw_row(*args, **kw)
+                want = banded_sw_row_plain(*args, **kw)
+                live = torch.arange(M, device=dev)[None, :, None] \
+                    < args[2][:, None, None].to(torch.int64)
+                e = max(diff(torch.where(live, unpack_rows(got["dirs32"]), 0),
+                             torch.where(live, unpack_rows(want["dirs32"]),
+                                         0)),
+                        diff(got["best"], want["best"]),
+                        diff(got["h_last"].clamp(min=FLOOR),
+                             want["h_last"].clamp(min=FLOOR)))
+                if e:
+                    fail(f"banded_sw_row != plain at M={M} W={W} B={B} "
+                         f"(max abs err {e})")
+                err["dp"] = max(err["dp"], e)
+            args = on_dev(edge_batch(rng, B, M, W, adiag=True))
+            got = banded_sw_adiag(*args, **kw)
+            want = banded_sw_adiag_plain(*args, **kw)
+            live = adiag_live(args[2], args[3], got["dirs32a"].shape[1])
+            e = max(diff(torch.where(live, got["dirs32a"], 0),
+                         torch.where(live, want["dirs32a"], 0)),
+                    diff(got["h_last"].clamp(min=FLOOR),
+                         want["h_last"].clamp(min=FLOOR)))
+            if e:
+                fail(f"banded_sw_adiag != plain at M={M} W={W} B={B} "
+                     f"(max abs err {e})")
+            err["adp"] = max(err["adp"], e)
+    log("phase 2c ok: both DP kernels equal their plain versions on "
+        "chunks of 1 and 37 instances at (5120, 256) and (128, 128), a "
+        "long deletion's E chain across every thread edge in each, and "
+        "N-block extensions with zdrop")
+    return err
+
+
+SMALL_CHUNK = 128       # instances in a main-path-sized DP chunk
+
+
+def phase_fixed(dev, scores, rng):
+    """Phase 2d: each DP kernel's fixed per-instance work (the windows'
+    staging, row or step 0, the best-cell fold and the stores) beside its
+    whole time, both as kernel device time: the phase-2 global instances
+    at B = CHUNK_BY_M and their first SMALL_CHUNK, once as they are and
+    once with every m (for the adiag DP m and n) set to 0, so that only
+    the fixed work runs. The staging is a part of that work, so its share
+    of the kernel's time is at most the printed share."""
+    import torch
+
+    from lamsa_tpu_torch.ops.banded_sw_adiag import banded_sw_adiag
+    from lamsa_tpu_torch.ops.banded_sw_row import banded_sw_row
+    from lamsa_tpu_torch.ops.testing import make_batch, make_globals
+    from lamsa_tpu_torch.pipeline.extend import BUCKETS, CHUNK_BY_M
+
+    kw = dict(match=scores.match, mismatch=scores.mismatch,
+              gapo=scores.gap_open, gape=scores.gap_ext)
+    sums = {(k, size): [0.0, 0.0] for k in DP_WRAPPERS
+            for size in ("phase2", "chunk")}
+    log("phase 2d: DP kernels' fixed per-instance work, device ms "
+        "(real call / every m = 0 / share)")
+    for M, W in BUCKETS:
+        B = CHUNK_BY_M[(M, W)]
+        zero = torch.zeros(B, dtype=torch.int32, device=dev)
+        kinds = (("banded_sw_row", banded_sw_row, (2,),
+                  [torch.from_numpy(a).to(dev)
+                   for a in make_batch(rng, B, M, W)] + [zero]),
+                 ("banded_sw_adiag", banded_sw_adiag, (2, 3),
+                  [torch.from_numpy(a).to(dev)
+                   for a in make_globals(rng, B, M, W, stress=True)]))
+        calls, keys = [], []
+        for name, fn, lens, args in kinds:
+            for size, n in (("phase2", B), ("chunk", min(B, SMALL_CHUNK))):
+                full = [x[:n].contiguous() for x in args]
+                empty = [torch.zeros_like(x) if i in lens else x
+                         for i, x in enumerate(full)]
+                calls += [(lambda a=full, f=fn: f(*a, **kw),
+                           KERNEL_NAMES[name]),
+                          (lambda a=empty, f=fn: f(*a, **kw),
+                           KERNEL_NAMES[name])]
+                keys.append((name, size, n))
+        ms = dp_kernel_ms(calls)
+        line = []
+        for (name, size, n), real, fixed in zip(keys, ms[0::2], ms[1::2]):
+            sums[(name, size)][0] += real
+            sums[(name, size)][1] += fixed
+            line.append(f"{name[10:]} B={n}: {real:.4f} / {fixed:.4f} "
+                        f"/ {fixed / real:.3f}")
+        log(f"{M:>5} {W:>4}  " + "; ".join(line))
+    for (name, size), (real, fixed) in sums.items():
+        log(f"phase 2d sum, {name} {size}: {real:.4f} ms, fixed "
+            f"{fixed:.4f} ms = {fixed / real:.4f} of the kernel's time")
+    return sums
 
 
 KERNEL_MODULES = ("banded_sw_row", "traceback_row", "banded_sw_adiag",
@@ -336,7 +671,7 @@ def launch_counts(reset=False):
 
 
 def sam_lines(out):
-    from lamsa_tpu.io.sam import format_sam_record
+    from lamsa_tpu_torch.io.sam import format_sam_record
     return [format_sam_record(r) for rs in out for r in rs]
 
 
@@ -351,10 +686,10 @@ def check_sam(got, want, what):
 def phase_e2e(dev, card, world):
     import torch
 
-    from lamsa_tpu.eval import evaluate
-    from lamsa_tpu.utils.timers import GLOBAL as STATS
+    from lamsa_tpu_torch.eval import evaluate
     from lamsa_tpu_torch.pipeline import extend
     from lamsa_tpu_torch.pipeline.aln import Aligner, align_reads
+    from lamsa_tpu_torch.utils.timers import GLOBAL as STATS
 
     _genome, ref, idx, cfg, reads = world
     log(f"phase 3: config-1 world ({ref.total_len} bp, k={idx.k}, "
@@ -385,6 +720,25 @@ def phase_e2e(dev, card, world):
     log(f"kernel launches in the end-to-end run: {launches}")
     if min(launches.values()) <= 0:
         fail(f"a kernel of the main path was never launched: {launches}")
+    e2e_ms, wrap = kernel_device_ms(lambda: list(align_reads(
+        ref, idx, reads, cfg, batch_size=256, aligner=aligner)))
+    log(f"device ms per kernel in one more (profiled) config-1 pass: "
+        f"{e2e_ms}")
+    for n in DP_WRAPPERS:
+        total = sum(ms for ms, _ in wrap[n].values())
+        inside = sum(ms for name, (ms, _) in wrap[n].items()
+                     if KERNEL_NAMES[n] in name)
+        if abs(inside - e2e_ms[n]) > 1e-6:
+            fail(f"{n}: the kernel ran outside its wrapper's markers "
+                 f"({inside} of {e2e_ms[n]} ms inside)")
+        others = sorted(((ms, c, name[:60]) for name, (ms, c)
+                         in wrap[n].items() if KERNEL_NAMES[n] not in name),
+                        reverse=True)
+        log(f"{n} wrapper calls in that pass: {total:.4f} device ms, of "
+            f"which the kernel {inside:.4f} and the rest "
+            f"{total - inside:.4f} (ms x calls, name: "
+            + "; ".join(f"{ms:.4f} x{c} {name}" for ms, c, name in others)
+            + ")")
 
     st = evaluate(out, reads)
     log(f"accuracy: part_recall={st.part_recall:.4f} "
@@ -425,7 +779,7 @@ def phase_e2e(dev, card, world):
         f"records) is byte-identical on the card with globals on the row "
         f"pair and on the antidiagonal pair ({adiag[True]} adiag DP "
         f"launches)")
-    return launches, rps
+    return launches, rps, e2e_ms
 
 
 def phase_10kb(dev, card, world):
@@ -433,17 +787,13 @@ def phase_10kb(dev, card, world):
     on the card."""
     import torch
 
-    import bench
-    from lamsa_tpu import sim
-    from lamsa_tpu.eval import evaluate
-    from lamsa_tpu.utils.timers import GLOBAL as STATS
+    from lamsa_tpu_torch.eval import evaluate
     from lamsa_tpu_torch.pipeline.aln import Aligner, align_reads
+    from lamsa_tpu_torch.utils.timers import GLOBAL as STATS
+    from lamsa_tpu_torch.worlds import reads_10kb
 
     genome, ref, idx, cfg, _reads = world
-    reads10 = sim.simulate_reads(np.random.default_rng(bench.SEED + 1),
-                                 genome, N_10KB, read_len=(9000, 11000),
-                                 sub=0.02, ins=0.04, dele=0.04,
-                                 sv_fraction=0.15)
+    reads10 = reads_10kb(genome)
     t0 = time.perf_counter()
     a10 = Aligner(ref, idx, cfg, device=dev)
     a10.align_batch(reads10[:N_WARM_10KB])
@@ -488,7 +838,7 @@ def phase_10kb(dev, card, world):
 
 def log_dp_buckets():
     """DP instances and cells per bucket of the last STATS window."""
-    from lamsa_tpu.utils.timers import GLOBAL as STATS
+    from lamsa_tpu_torch.utils.timers import GLOBAL as STATS
     per_bucket = {k[len("dp_instances_"):]: (STATS.counters[k],
                                              STATS.counters.get(
                                                  "dp_cells_" + k[13:], 0))
@@ -503,16 +853,16 @@ def wholegenome_ref(n_chrom):
     """The first n_chrom chromosomes of tools/wholegenome_bench.py's
     config-4 genome: the same SEED and draws, so chr1 and chr2 are that
     genome's chr1 and chr2 (random bases, N_RUNS // N_CHROM runs of N of
-    100-2000 bp per chromosome)."""
-    from lamsa_tpu.io.refpack import PackedReference, _find_runs
-    from tools import wholegenome_bench as wg
+    100-2000 bp per chromosome; constants from lamsa_tpu_torch.worlds)."""
+    from lamsa_tpu_torch import worlds as wg
+    from lamsa_tpu_torch.io.refpack import PackedReference, _find_runs
 
-    rng = np.random.default_rng(wg.SEED)
-    per = wg.GENOME_LEN // wg.N_CHROM
+    rng = np.random.default_rng(wg.WG_SEED)
+    per = wg.WG_GENOME_LEN // wg.WG_N_CHROM
     parts = []
     for _ in range(n_chrom):
         codes = rng.integers(0, 4, per, dtype=np.uint8)
-        for _ in range(wg.N_RUNS // wg.N_CHROM):
+        for _ in range(wg.WG_N_RUNS // wg.WG_N_CHROM):
             p = int(rng.integers(0, per - 2000))
             codes[p:p + int(rng.integers(100, 2000))] = 4
         parts.append(codes)
@@ -528,8 +878,8 @@ def sample_window_reads(ref, n_reads, rng, *, read_len, sub, ins, dele,
     """tools/wholegenome_bench.py sample_reads with the read class as
     arguments: one read simulated from each sampled 40 kb window (<= 1%
     N, inside one chromosome), truth rebased to chromosome coordinates."""
-    from lamsa_tpu import sim
-    from lamsa_tpu.io.fasta import BASES, FastxRecord
+    from lamsa_tpu_torch import sim
+    from lamsa_tpu_torch.io.fasta import BASES, FastxRecord
 
     reads = []
     lut = np.frombuffer("".join(BASES).encode(), np.uint8)
@@ -566,15 +916,15 @@ def phase_fm(dev, card):
     docstring)."""
     import torch
 
-    from lamsa_tpu.config import AlignConfig, ScoreParams, preset
-    from lamsa_tpu.eval import evaluate
-    from lamsa_tpu.index.fmindex import FmIndex
-    from lamsa_tpu.io.fasta import encode_seq
-    from lamsa_tpu.utils.timers import GLOBAL as STATS
+    from lamsa_tpu_torch import worlds as wg
+    from lamsa_tpu_torch.config import AlignConfig, ScoreParams, preset
+    from lamsa_tpu_torch.eval import evaluate
+    from lamsa_tpu_torch.index.fmindex import FmIndex
+    from lamsa_tpu_torch.io.fasta import encode_seq
     from lamsa_tpu_torch.pipeline.aln import Aligner, align_reads
     from lamsa_tpu_torch.pipeline.seeding import make_qpos_grid, \
         seed_hits_fm
-    from tools import wholegenome_bench as wg
+    from lamsa_tpu_torch.utils.timers import GLOBAL as STATS
 
     t0 = time.perf_counter()
     ref = wholegenome_ref(FM_N_CHROM)
@@ -587,7 +937,7 @@ def phase_fm(dev, card):
         f"(sa_rate {fmi.sa_rate}, {len(fmi.ssa_pos)} sampled SA entries)")
     cfg = AlignConfig(scores=ScoreParams(), seed_step=10)   # the tool's
     reads = wg.sample_reads(ref, N_FM_WARM + N_FM_TIMED,
-                            np.random.default_rng(wg.SEED + 1))
+                            np.random.default_rng(wg.WG_SEED + 1))
 
     t0 = time.perf_counter()
     aligner = Aligner(ref, fmi, cfg, device=dev)
@@ -643,7 +993,7 @@ def phase_fm(dev, card):
     # 28% error: past the exact-piece envelope, the adaptive re-seed with
     # the 1-edit variant tracks must run on the card
     hreads = sample_window_reads(
-        ref, N_HIGH_ERR, np.random.default_rng(wg.SEED + 2),
+        ref, N_HIGH_ERR, np.random.default_rng(wg.WG_SEED + 2),
         read_len=(1000, 3000), sub=0.15, ins=0.07, dele=0.06,
         sv_fraction=0.2, prefix="e28_")
     ont = preset("ont")
@@ -716,11 +1066,11 @@ def phase_profile(dev, card, runs: int = 3):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    import bench
-    from lamsa_tpu.utils.timers import GLOBAL as STATS
     from lamsa_tpu_torch.pipeline.aln import Aligner, align_reads
+    from lamsa_tpu_torch.utils.timers import GLOBAL as STATS
+    from lamsa_tpu_torch.worlds import build_world
 
-    _genome, ref, idx, cfg, reads = bench.build_world()
+    _genome, ref, idx, cfg, reads = build_world()
     aligner = Aligner(ref, idx, cfg, device=dev)
     aligner.align_batch(reads[:256])
     torch.cuda.synchronize()
@@ -780,8 +1130,8 @@ def main() -> int:
         fail("torch.cuda.is_available() is False; this smoke test runs "
              "the CUDA kernels on a card and has no CPU path")
     try:
-        from lamsa_tpu.config import ScoreParams
         from lamsa_tpu_torch import _build
+        from lamsa_tpu_torch.config import ScoreParams
     except ImportError as e:
         fail(f"the repository is not next to chip_smoke.py ({e})")
 
@@ -807,46 +1157,49 @@ def main() -> int:
     if sys.argv[1:] == ["--profile"]:
         print(json.dumps({"profile": phase_profile(dev, card)}), flush=True)
         return 0
-    import bench
+    from lamsa_tpu_torch.worlds import build_world
     scores = ScoreParams(match=1, mismatch=3, gap_open=2, gap_ext=1)
     rng = np.random.default_rng(20260817)
-    err, tot = phase_kernels(dev, scores, rng)
-    err_a, tot_a = phase_adiag(dev, scores, rng)
+    err, tot, bnd = phase_kernels(dev, scores, rng)
+    err_a, tot_a, bnd_a = phase_adiag(dev, scores, rng)
+    err_e = phase_edges(dev, scores, rng)
+    phase_fixed(dev, scores, np.random.default_rng(20260818))
     t0 = time.perf_counter()
-    world = bench.build_world()
+    world = build_world()
     log(f"config-1 world built in {time.perf_counter() - t0:.1f} s")
-    launches, _rps = phase_e2e(dev, card, world)
+    launches, _rps, e2e_ms = phase_e2e(dev, card, world)
     phase_10kb(dev, card, world)
     phase_fm(dev, card)
 
-    if "jax" in sys.modules:
-        fail("jax was imported")
-    kernels = [
-        {"name": "banded_sw_row", "route": "cuda",
-         "source": "lamsa_tpu_torch/csrc/banded_sw_row.cu",
-         "replaces": "lamsa_tpu/ops/banded_sw_pallas.py:344",
-         "launches": launches["banded_sw_row"], "max_abs_err": err["dp"],
-         "ms": round(tot["dp"], 4), "plain_ms": round(tot["dp_plain"], 4)},
-        {"name": "traceback_row", "route": "cuda",
-         "source": "lamsa_tpu_torch/csrc/traceback_row.cu",
-         "replaces": "lamsa_tpu/ops/traceback_pallas.py:227",
-         "launches": launches["traceback_row"], "max_abs_err": err["tb"],
-         "ms": round(tot["tb"], 4), "plain_ms": round(tot["tb_plain"], 4)},
-        {"name": "banded_sw_adiag", "route": "cuda",
-         "source": "lamsa_tpu_torch/csrc/banded_sw_adiag.cu",
-         "replaces": "lamsa_tpu/ops/banded_sw_adiag.py:375",
-         "launches": launches["banded_sw_adiag"],
-         "max_abs_err": err_a["adp"], "ms": round(tot_a["adp"], 4),
-         "plain_ms": round(tot_a["adp_plain"], 4)},
-        {"name": "traceback_adiag", "route": "cuda",
-         "source": "lamsa_tpu_torch/csrc/traceback_adiag.cu",
-         "replaces": "lamsa_tpu/ops/banded_sw_adiag.py:607",
-         "launches": launches["traceback_adiag"],
-         "max_abs_err": err_a["atb"], "ms": round(tot_a["atb"], 4),
-         "plain_ms": round(tot_a["atb_plain"], 4)},
-    ]
-    log("kernels: ms / plain_ms = one call at each of the 9 buckets "
-        "(B = CHUNK_BY_M), summed; launches = the config-1 run of phase 3")
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "lamsa_tpu", "bench",
+                                           "tools"))
+    if leaked:
+        fail(f"the port imported {leaked}")
+    rows = (("banded_sw_row", "banded_sw_pallas.py:344", err["dp"],
+             err_e["dp"], tot["dp"], tot["dp_plain"], bnd["dp"]),
+            ("traceback_row", "traceback_pallas.py:227", err["tb"], 0,
+             tot["tb"], tot["tb_plain"], bnd["tb"]),
+            ("banded_sw_adiag", "banded_sw_adiag.py:375", err_a["adp"],
+             err_e["adp"], tot_a["adp"], tot_a["adp_plain"], bnd_a["adp"]),
+            ("traceback_adiag", "banded_sw_adiag.py:607", err_a["atb"], 0,
+             tot_a["atb"], tot_a["atb_plain"], bnd_a["atb"]))
+    kernels = []
+    for name, tpu, e1, e2, ms, plain_ms, b in rows:
+        by_ops = b["ops_ms"] > b["bytes_ms"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"lamsa_tpu_torch/csrc/{name}.cu",
+            "replaces": f"lamsa_tpu/ops/{tpu}",
+            "launches": launches[name], "max_abs_err": max(e1, e2),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+            "bound_by": "operations" if by_ops else "bytes",
+            "library_ms": None, "e2e_ms": e2e_ms[name]})
+    log("kernels: ms / plain_ms / bound_ms = one call at each of the 9 "
+        "buckets (B = CHUNK_BY_M, phase 2), summed; launches = the "
+        "config-1 run of phase 3; e2e_ms = the kernel's device time in "
+        "one profiled config-1 pass; library_ms null: no single PyTorch "
+        "call computes a banded DP with direction bits or its walk")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,11 +4,17 @@ A port of the JAX package ``lamsa_tpu`` (which stays the reference) to
 PyTorch, with the TPU's Pallas kernels rewritten as CUDA kernels for
 Hopper (``csrc/``). Layout mirrors the JAX package: ``ops/`` (kernels
 and device helpers), ``pipeline/`` (seeding, DP batching, the aligner),
-``cli.py``. Modules of ``lamsa_tpu`` that import no JAX (config, io,
-index, native, sim, eval, pipeline/skeleton.py, ops/oracle.py,
-ops/traceback.py, utils/timers.py) are imported, not copied.
+``cli.py``. The package imports nothing of ``lamsa_tpu``: the host
+modules it shares with it (config, io, index, native, sim, eval,
+pipeline/skeleton.py, utils/timers.py) are copies that name their
+source in their first line, so index files and SAM stay the JAX
+package's byte for byte.
 
 Every entry point takes an explicit torch ``device``: on ``cuda`` the DP
 stages launch the kernels, on ``cpu`` they run the kernels' plain torch
 versions. Nothing falls back from one device to the other.
 """
+
+# The @PG VN of the SAM header: the JAX package's version
+# (lamsa_tpu/__init__.py), so SAM stays byte-identical to its SAM.
+__version__ = "0.1.0"

@@ -33,14 +33,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argtypes (all return int = cudaError_t)
 _SIGNATURES = {
-    # q, t_win, m_len, n_len, lo, zdrop, dirs32, h_last, best,
-    # B, M, W, match, mismatch, gapo, gape, stream
-    "lamsa_banded_sw_row": (_P,) * 9 + (_I,) * 7 + (_P,),
+    # q, t_win, m_len, n_len, lo, zdrop, order, next, dirs32, h_last,
+    # best, B, M, W, match, mismatch, gapo, gape, stream
+    "lamsa_banded_sw_row": (_P,) * 11 + (_I,) * 7 + (_P,),
     # dirs32, lo, start_i, start_d, steps, term, B, M, W, stream
     "lamsa_traceback_row": (_P,) * 6 + (_I,) * 3 + (_P,),
-    # q, t_win, m_len, n_len, lo, dirs32a, h_last,
+    # q, t_win, m_len, n_len, lo, order, next, dirs32a, h_last,
     # B, M, W, match, mismatch, gapo, gape, stream
-    "lamsa_banded_sw_adiag": (_P,) * 7 + (_I,) * 7 + (_P,),
+    "lamsa_banded_sw_adiag": (_P,) * 9 + (_I,) * 7 + (_P,),
     # dirs32a, si, sd, hl, opbits, events, term0, n_ev,
     # B, A4, V, M, EW, wide, e_slots, stream
     "lamsa_traceback_adiag": (_P,) * 8 + (_I,) * 7 + (_P,),

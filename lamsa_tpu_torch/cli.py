@@ -4,10 +4,10 @@
     python -m lamsa_tpu_torch.cli aln [--device cuda] <ref.fa> <reads.fq>
     python -m lamsa_tpu_torch.cli merge -o out.sam s0.sam s1.sam
 
-The parser, ``index`` and ``merge`` are the JAX package's
-(``lamsa_tpu.cli``, which imports no JAX at module level); ``aln`` is
-this package's own and adds ``--device`` (default ``cuda``). It aligns
-with the index ``index`` built: the FM index (``index --fm``, the
+The parser, ``index`` and ``merge`` are copies of the JAX package's
+(``lamsa_tpu/cli.py``); ``aln`` is this package's own and the parser
+adds ``--device`` (default ``cuda``) to it. It aligns with the index ``index``
+built: the FM index (``index --fm``, the
 default above 200 Mb) or the k-mer table. Options whose machinery is
 not ported yet (several devices, multi-host shards, --resume) are
 refused with an error.
@@ -20,8 +20,137 @@ import os
 import sys
 import time
 
-from lamsa_tpu.cli import _index_dir
-from lamsa_tpu.cli import build_parser as _jax_build_parser
+# ---- copied from lamsa_tpu/cli.py (only import lines differ); its
+# build_parser is at the end, with this package's aln
+
+
+def _index_dir(ref_path: str) -> str:
+    return ref_path + ".lti"
+
+
+def auto_kmer(genome_len: int) -> int:
+    """Index k-mer size scaled to genome size: ~log4(L) + 2, in [13, 16]
+    (keeps expected random hits per k-mer around or below 1)."""
+    from lamsa_tpu_torch.index.kmer import auto_kmer as _ak
+    return _ak(genome_len)
+
+
+# genomes above this size use the FM-index (k-mer position tables would
+# exceed HBM); below it the sorted k-mer table is faster to build+query
+FM_THRESHOLD = 200_000_000
+
+
+def cmd_index(args) -> int:
+    from lamsa_tpu_torch.index.fmindex import FmIndex
+    from lamsa_tpu_torch.index.kmer import KmerIndex
+    from lamsa_tpu_torch.io.refpack import PackedReference
+
+    t0 = time.time()
+    ref = PackedReference.from_fasta(args.ref)
+    out = _index_dir(args.ref)
+    ref.save(out)
+    use_fm = args.fm or (ref.total_len > FM_THRESHOLD and not args.kmer_index)
+    if use_fm:
+        print(f"[lamsa_tpu index] packed {ref.num_seqs} seq(s), "
+              f"{ref.total_len} bp; building FM-index (BWT/SA-IS)",
+              file=sys.stderr)
+        fm = FmIndex.build(ref.codes)
+        fm.save(out)
+        print(f"[lamsa_tpu index] FM-index: primary={fm.primary}, "
+              f"{len(fm.ssa_pos)} sampled SA entries -> {out} "
+              f"({time.time() - t0:.1f}s)", file=sys.stderr)
+    else:
+        k = args.kmer or auto_kmer(ref.total_len)
+        print(f"[lamsa_tpu index] packed {ref.num_seqs} seq(s), "
+              f"{ref.total_len} bp; k={k}", file=sys.stderr)
+        idx = KmerIndex.build(ref.codes, k,
+                              max_hits_per_kmer=args.max_hits_per_kmer)
+        idx.save(out)
+        print(f"[lamsa_tpu index] {len(idx.keys)} distinct k-mers, "
+              f"{len(idx.positions)} positions -> {out} "
+              f"({time.time() - t0:.1f}s)", file=sys.stderr)
+    return 0
+
+
+def cmd_merge(args) -> int:
+    """Merge per-shard SAM files (from ``aln --num-shards M --shard-id
+    P``) into one input-ordered SAM: batches were assigned round-robin
+    (batch b -> shard b mod M), so the merge interleaves whole batches
+    from the shard files in rank order (parallel/multihost.py design,
+    file-sink flavor).
+
+    Streaming k-way interleave: each shard file is read lazily and at
+    most one batch of read-groups per shard is resident, so memory is
+    O(M * batch_reads * records/read) regardless of shard size
+    (round-2 judge item 7: the slurping merge would have needed tens
+    of GB at the 1M-read config-5 scale; tests/test_cli.py asserts a
+    bounded-RSS property merge vs the in-memory result)."""
+    M = len(args.shards)
+    handles = [open(p) for p in args.shards]
+    headers: list[str] = []
+    batch_reads = None
+    pending: list[str | None] = [None] * M   # first record line per shard
+    for si, fh in enumerate(handles):
+        for ln in fh:
+            ln = ln.rstrip("\n")
+            if ln.startswith("@"):
+                if ln.startswith("@CO\tlamsa_tpu_shard:"):
+                    batch_reads = int(ln.rsplit("batch_reads:", 1)[1])
+                elif si == 0:
+                    headers.append(ln)
+                continue
+            pending[si] = ln
+            break
+    if batch_reads is None:
+        batch_reads = args.batch_reads
+
+    def group_stream(si):
+        """Lazily yield per-read record groups (a read's records are
+        consecutive in its shard file)."""
+        fh = handles[si]
+        cur: list[str] = []
+        prev = None
+        first = pending[si]
+        lines = iter([first] if first is not None else [])
+        import itertools
+        for ln in itertools.chain(lines, (l.rstrip("\n") for l in fh)):
+            qn = ln.split("\t", 1)[0]
+            if qn != prev and cur:
+                yield cur
+                cur = []
+            cur.append(ln)
+            prev = qn
+        if cur:
+            yield cur
+
+    streams = [group_stream(si) for si in range(M)]
+    done = [False] * M
+    out = open(args.output, "w") if args.output else sys.stdout
+    for h in headers:
+        print(h, file=out)
+    b = 0
+    n_reads = 0
+    while not all(done):
+        p = b % M
+        for _ in range(batch_reads):
+            grp = next(streams[p], None)
+            if grp is None:
+                done[p] = True
+                break
+            n_reads += 1
+            for ln in grp:
+                print(ln, file=out)
+        b += 1
+    if args.output:
+        out.close()
+    for fh in handles:
+        fh.close()
+    print(f"[lamsa_tpu merge] {M} shards -> {n_reads} reads",
+          file=sys.stderr)
+    return 0
+
+
+# ---- end of the copy
 
 
 def _refuse(msg: str) -> int:
@@ -31,12 +160,12 @@ def _refuse(msg: str) -> int:
 
 
 def cmd_aln(args) -> int:
-    from lamsa_tpu.config import ScoreParams, preset
-    from lamsa_tpu.index.fmindex import FmIndex
-    from lamsa_tpu.index.kmer import KmerIndex
-    from lamsa_tpu.io.fasta import read_fastx
-    from lamsa_tpu.io.refpack import PackedReference
-    from lamsa_tpu.io.sam import format_sam_record, sam_header
+    from lamsa_tpu_torch.config import ScoreParams, preset
+    from lamsa_tpu_torch.index.fmindex import FmIndex
+    from lamsa_tpu_torch.index.kmer import KmerIndex
+    from lamsa_tpu_torch.io.fasta import read_fastx
+    from lamsa_tpu_torch.io.refpack import PackedReference
+    from lamsa_tpu_torch.io.sam import format_sam_record, sam_header
     from lamsa_tpu_torch.pipeline.aln import align_reads
 
     if args.devices != 1:
@@ -76,7 +205,7 @@ def cmd_aln(args) -> int:
 
     stats_fh = None
     if args.stats:
-        from lamsa_tpu.utils.timers import GLOBAL as STATS
+        from lamsa_tpu_torch.utils.timers import GLOBAL as STATS
         STATS.reset()
         stats_fh = sys.stderr if args.stats == "-" else open(args.stats, "w")
 
@@ -88,7 +217,7 @@ def cmd_aln(args) -> int:
         if stats_fh is None:
             return
         import json
-        from lamsa_tpu.utils.timers import GLOBAL as STATS
+        from lamsa_tpu_torch.utils.timers import GLOBAL as STATS
         snap = STATS.snapshot()
         snap["reads_done"] = n_reads
         snap["wall_total_s"] = round(time.time() - t0, 3)
@@ -117,17 +246,79 @@ def cmd_aln(args) -> int:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The JAX package's parser with this package's ``aln`` (plus
-    --device)."""
-    p = _jax_build_parser()
-    p.prog = "lamsa-tpu-torch"
-    sub = next(a for a in p._actions
-               if isinstance(a, argparse._SubParsersAction))
-    pa = sub.choices["aln"]
+    """lamsa_tpu/cli.py build_parser, with this package's ``aln`` and its
+    --device."""
+    p = argparse.ArgumentParser(
+        prog="lamsa-tpu-torch",
+        description="long-read split aligner on PyTorch and CUDA (the "
+                    "lamsa_tpu port)")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    pi = sub.add_parser("index", help="build reference index")
+    pi.add_argument("ref", help="reference FASTA")
+    pi.add_argument("-k", "--kmer", type=int, default=None,
+                    help="index k-mer length (default: auto from genome)")
+    pi.add_argument("--max-hits-per-kmer", type=int, default=64)
+    pi.add_argument("--fm", action="store_true",
+                    help="force FM-index (default for genomes > 200 Mb)")
+    pi.add_argument("--kmer-index", action="store_true",
+                    help="force sorted k-mer index")
+    pi.set_defaults(func=cmd_index)
+
+    pa = sub.add_parser("aln", help="align long reads, emit SAM")
+    pa.add_argument("ref", help="reference FASTA (indexed)")
+    pa.add_argument("reads", help="reads FASTA/FASTQ (.gz ok)")
+    pa.add_argument("-o", "--output", default=None, help="SAM output path")
+    pa.add_argument("-t", "--threads", type=int, default=1,
+                    help="host worker threads (traceback/SAM)")
+    pa.add_argument("-x", "--preset", default="pacbio",
+                    choices=["pacbio", "ont", "default", "hifi"],
+                    help="read-type preset (re-tunes scoring/seeding)")
+    pa.add_argument("-A", "--match", type=int, default=1)
+    pa.add_argument("-B", "--mismatch", type=int, default=3)
+    pa.add_argument("-O", "--gap-open", type=int, default=2)
+    pa.add_argument("-E", "--gap-ext", type=int, default=1)
+    pa.add_argument("-w", "--band-width", type=int, default=64,
+                    help="advisory; kernel bands are bucketed "
+                         "(128/256 lanes)")
+    pa.add_argument("-s", "--seed-step", type=int, default=10)
+    pa.add_argument("--batch-reads", type=int, default=512)
+    pa.add_argument("-V", "--sv-max", type=int, default=100000,
+                    help="max SV size; larger ref jumps -> translocation")
+    pa.add_argument("--sv-min", type=int, default=30,
+                    help="min gap classified as an SV event")
+    pa.add_argument("--secondary", action="store_true",
+                    help="emit rejected overlapping chains as 0x100 "
+                         "secondary records")
+    pa.add_argument("-R", "--rg", default=None, help="read group id")
+    pa.add_argument("--md", action="store_true", help="emit MD:Z tags")
+    pa.add_argument("--resume", action="store_true",
+                    help="resume an interrupted run (needs -o)")
+    pa.add_argument("--stats", default=None, metavar="FILE",
+                    help="emit per-batch stage timing/counter JSONL "
+                         "('-' for stderr)")
+    pa.add_argument("-d", "--devices", type=int, default=1,
+                    help="local chips for data-parallel alignment "
+                         "(0 = all)")
+    pa.add_argument("--num-shards", type=int, default=1,
+                    help="total aln processes (multi-host read sharding)")
+    pa.add_argument("--shard-id", type=int, default=0,
+                    help="this process's shard index (0-based)")
     pa.add_argument("--device", default="cuda",
                     help="torch device to align on: cuda (the CUDA "
                          "kernels) or cpu (their plain torch versions)")
     pa.set_defaults(func=cmd_aln)
+
+    pm = sub.add_parser("merge",
+                        help="merge per-shard SAMs (aln --num-shards) "
+                             "into input order")
+    pm.add_argument("shards", nargs="+",
+                    help="shard SAM files in --shard-id order")
+    pm.add_argument("-o", "--output", default=None)
+    pm.add_argument("--batch-reads", type=int, default=512,
+                    help="batch size used by the aln runs (read from "
+                         "@CO headers when present)")
+    pm.set_defaults(func=cmd_merge)
     return p
 
 

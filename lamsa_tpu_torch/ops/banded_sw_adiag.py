@@ -33,9 +33,8 @@ import threading
 
 import torch
 
-from lamsa_tpu.ops.oracle import NEG_INF
 from lamsa_tpu_torch import _build
-from lamsa_tpu_torch.ops.wire import a_pad
+from lamsa_tpu_torch.ops.wire import NEG_INF, a_pad, longest_first
 
 LAUNCHES = 0        # kernel launches (CUDA path only)
 _count_lock = threading.Lock()
@@ -83,10 +82,13 @@ def banded_sw_adiag(q, t_win, m_len, n_len, lo, *, match, mismatch, gapo,
     dirs32a = torch.empty((B, a_pad(M, W) // 4, W // 2), dtype=torch.int32,
                           device=dev)
     h_last = torch.empty((B, W), dtype=torch.int32, device=dev)
+    order = longest_first(m_len + n_len)
+    # the persistent warps' instance counter, zeroed by the C entry
+    nxt = torch.empty(1, dtype=torch.int32, device=dev)
     rc = _build.lib().lamsa_banded_sw_adiag(
         q.data_ptr(), t_win.data_ptr(), m_len.data_ptr(), n_len.data_ptr(),
-        lo.data_ptr(), dirs32a.data_ptr(), h_last.data_ptr(), B, M, W,
-        match, mismatch, gapo, gape,
+        lo.data_ptr(), order.data_ptr(), nxt.data_ptr(), dirs32a.data_ptr(),
+        h_last.data_ptr(), B, M, W, match, mismatch, gapo, gape,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "lamsa_banded_sw_adiag")
     _count()

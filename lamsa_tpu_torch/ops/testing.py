@@ -12,12 +12,25 @@ kernel tests and ``chip_smoke.py``.
                     run too long for the narrow event count) and an
                     indel ladder (more D events than event slots)
   unpack_rows       dirs32 int32[B, M/4, W] -> direction bytes [B, M, W]
+  make_deletion_batch
+                    global instances with an even lo whose query lacks
+                    one run of W/2 - 16 target bases: the E chain of
+                    that gap crosses every thread edge of the DP
+                    kernels' lane split on its way
+  edge_batch        B - 1 instances of make_batch or make_globals and
+                    one of make_deletion_batch, concatenated
   make_global_chunk packed read / reference words and a descriptor wire
                     of make_globals instances on both read strands
   adiag_live        which dirs32a words lie below each instance's m + n
+  port_world        this package's own reference, index and config for
+                    another package's (the tests that compare the port
+                    with the JAX package build both sides from the same
+                    codes)
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -153,6 +166,35 @@ def make_globals(rng, B: int, M: int, W: int, stress: bool = False):
     return q, t_win, m_len, n_len, lo
 
 
+def make_deletion_batch(rng, B: int, M: int, W: int):
+    """Global instances (even lo) whose query deletes W/2 - 16
+    consecutive target bases: (q, t_win, m, n, lo) int32 arrays."""
+    dels = W // 2 - 16
+    q = np.zeros((B, M), np.int32)
+    t_win = np.zeros((B, M + W), np.int32)
+    m_len = np.zeros(B, np.int32)
+    n_len = np.zeros(B, np.int32)
+    lo = np.zeros(B, np.int32)
+    for b in range(B):
+        n = int(rng.integers(dels + 8, M + dels - 2))
+        t = rng.integers(0, 4, n).astype(np.int32)
+        a = int(rng.integers(1, n - dels))
+        qq = np.concatenate([t[:a], t[a + dels:]])
+        m_len[b], n_len[b] = len(qq), n
+        lo[b] = _even_lo(len(qq), n, W)
+        q[b, :len(qq)] = qq
+        t_win[b] = make_t_window(t, int(lo[b]), M, W)
+    return q, t_win, m_len, n_len, lo
+
+
+def edge_batch(rng, B: int, M: int, W: int, adiag: bool = False):
+    """B - 1 instances of make_globals (adiag) or make_batch, then one
+    of make_deletion_batch: (q, t_win, m, n, lo) int32 arrays."""
+    make = make_globals if adiag else make_batch
+    parts = [make(rng, B - 1, M, W), make_deletion_batch(rng, 1, M, W)]
+    return tuple(np.concatenate(x) for x in zip(*parts))
+
+
 def _revcomp(codes):
     return np.where(codes < 4, 3 - codes, codes)[::-1].astype(np.uint8)
 
@@ -203,3 +245,38 @@ def unpack_rows(dirs32):
     B, M4, W = dirs32.shape
     return dirs32.contiguous().view(torch.uint8).reshape(B, M4, W, 4) \
         .permute(0, 1, 3, 2).reshape(B, M4 * 4, W)
+
+
+def port_world(ref, index=None, config=None):
+    """This package's PackedReference (and index, and AlignConfig) for a
+    reference, index and config of another package: the reference from
+    the same codes, the index built anew from them with the same k or
+    sa_rate and checked to hold the same arrays, the config from the
+    same values. The Aligner tells its index kinds apart with
+    isinstance, so it must be handed this package's own classes."""
+    from lamsa_tpu_torch.config import AlignConfig, ScoreParams
+    from lamsa_tpu_torch.index.fmindex import FmIndex
+    from lamsa_tpu_torch.index.kmer import KmerIndex
+    from lamsa_tpu_torch.io.refpack import PackedReference
+
+    out = [PackedReference(names=list(ref.names),
+                           offsets=np.asarray(ref.offsets),
+                           codes=np.asarray(ref.codes),
+                           amb_runs=np.asarray(ref.amb_runs))]
+    if index is not None:
+        if hasattr(index, "sa_rate"):
+            own = FmIndex.build(out[0].codes, sa_rate=index.sa_rate)
+        else:
+            own = KmerIndex.build(out[0].codes, index.k)
+        for f in dataclasses.fields(own):
+            a, b = getattr(own, f.name), getattr(index, f.name)
+            if not (np.array_equal(a, b) if isinstance(a, np.ndarray)
+                    else a == b):
+                raise ValueError(f"port_world: the rebuilt index differs "
+                                 f"in {f.name}")
+        out.append(own)
+    if config is not None:
+        values = dataclasses.asdict(config)
+        values["scores"] = ScoreParams(**values["scores"])
+        out.append(AlignConfig(**values))
+    return tuple(out)

@@ -17,9 +17,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lamsa_tpu.ops.oracle import NEG_INF
-
 U32 = 0xFFFFFFFF
+
+# The DP contract's sentinel and zdrop cadence (lamsa_tpu/ops/oracle.py
+# NEG_INF, ZDROP_GROUP): dead cells hold NEG_INF, and zdrop is tested
+# after every ZDROP_GROUP-th row.
+NEG_INF = -(1 << 29)
+ZDROP_GROUP = 32
 
 # Packed-descriptor wire format (one (B, 4) int32 array per chunk),
 # identical to lamsa_tpu/ops/banded_sw.py:
@@ -36,6 +40,15 @@ def to_i32(x: torch.Tensor) -> torch.Tensor:
     view of a uint32 bit pattern)."""
     x = x.to(torch.int64) & U32
     return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
+
+
+def longest_first(steps: torch.Tensor) -> torch.Tensor:
+    """int32 instance order by descending step count (stable: equal
+    counts keep their index order), computed where ``steps`` lies. The
+    DP kernels' persistent warps take instances in this order, so the
+    longest start first."""
+    return torch.argsort(steps, descending=True, stable=True) \
+        .to(torch.int32)
 
 
 def first_argmax(x: torch.Tensor, dim: int = 1):
@@ -243,7 +256,7 @@ def collect_group(packed, M, topdown=False):
     slot 0; each instance's first n_ev slots are reversed here so the
     shared row-ascending decoder applies unchanged
     (lamsa_tpu/ops/banded_sw.py collect_group_pallas)."""
-    from lamsa_tpu import native
+    from lamsa_tpu_torch import native
 
     nw = M // 32
     Ew = compact_words(M)

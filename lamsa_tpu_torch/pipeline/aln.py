@@ -7,7 +7,7 @@ through
            from the k-mer table or the FM index (pipeline/seeding.py,
            ops/fm.py), chaining (ops/chain.py)
   host:    skeleton assembly + SV classification
-           (lamsa_tpu/pipeline/skeleton.py, imported)
+           (pipeline/skeleton.py, a copy of the JAX package's)
   device:  bucketed banded DP + traceback (pipeline/extend.py ->
            ops/dp_chain.py: the row DP and row traceback kernels)
   host:    native compact decode, CIGAR stitching, MAPQ,
@@ -29,17 +29,15 @@ import math
 import numpy as np
 import torch
 
-from lamsa_tpu.config import AlignConfig
-from lamsa_tpu.index.fmindex import FmIndex
-from lamsa_tpu.index.kmer import KmerIndex, auto_kmer
-from lamsa_tpu.io.fasta import encode_seq
-from lamsa_tpu.io.refpack import PackedReference
-from lamsa_tpu.io.sam import (FLAG_REVERSE, FLAG_SECONDARY,
-                              FLAG_SUPPLEMENTARY, OP_D, OP_I, OP_M, OP_S,
-                              SamRecord, cigar_ref_len, merge_runs,
-                              unmapped_record)
-from lamsa_tpu.pipeline.skeleton import anchors_to_blocks, build_skeleton
-from lamsa_tpu.utils.timers import GLOBAL as STATS
+from lamsa_tpu_torch.config import AlignConfig
+from lamsa_tpu_torch.index.fmindex import FmIndex
+from lamsa_tpu_torch.index.kmer import KmerIndex, auto_kmer
+from lamsa_tpu_torch.io.fasta import encode_seq
+from lamsa_tpu_torch.io.refpack import PackedReference
+from lamsa_tpu_torch.io.sam import (FLAG_REVERSE, FLAG_SECONDARY,
+                                    FLAG_SUPPLEMENTARY, OP_D, OP_I, OP_M,
+                                    OP_S, SamRecord, cigar_ref_len,
+                                    merge_runs, unmapped_record)
 from lamsa_tpu_torch.ops.chain import chain_hits
 from lamsa_tpu_torch.ops.fm import edit1_tracks
 from lamsa_tpu_torch.ops.wire import gather_packed_run, pack_codes_words, \
@@ -49,7 +47,10 @@ from lamsa_tpu_torch.pipeline.extend import (_MIN_SLACK, EXT_MARGIN,
                                              compute_nm, md_tag)
 from lamsa_tpu_torch.pipeline.seeding import (make_qpos_grid, seed_hits,
                                               seed_hits_fm)
+from lamsa_tpu_torch.pipeline.skeleton import (anchors_to_blocks,
+                                               build_skeleton)
 from lamsa_tpu_torch.pipeline.state import device_state
+from lamsa_tpu_torch.utils.timers import GLOBAL as STATS
 
 _EXT_CAP = 2048          # longest end extension attempted (rest soft-clips)
 
@@ -128,7 +129,7 @@ def _trim_boundary_indels(merged, pos, qs_cov, qe_cov):
 
 
 def _revcomp_codes(codes: np.ndarray) -> np.ndarray:
-    from lamsa_tpu import native
+    from lamsa_tpu_torch import native
     return native.revcomp4(codes)
 
 
@@ -152,7 +153,7 @@ class Aligner:
 
     def __init__(self, ref: PackedReference, index: KmerIndex | FmIndex,
                  config: AlignConfig | None = None, device="cuda"):
-        from lamsa_tpu import native
+        from lamsa_tpu_torch import native
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {self.device} requested but "
@@ -161,8 +162,15 @@ class Aligner:
             raise ValueError(f"unsupported device {self.device}")
         if not native.available():
             raise RuntimeError("the native host library "
-                               "(lamsa_tpu/native) is required and did "
-                               "not build")
+                               "(lamsa_tpu_torch/native) is required and "
+                               "did not build")
+        if not isinstance(index, (KmerIndex, FmIndex)):
+            # an index of the JAX package would pass neither test and be
+            # seeded as the wrong kind: refuse it rather than guess
+            raise TypeError(
+                f"index must be a lamsa_tpu_torch.index KmerIndex or "
+                f"FmIndex, not {type(index).__module__}."
+                f"{type(index).__name__}")
         self.ref = ref
         self.index = index
         self.config = config or AlignConfig()

@@ -26,8 +26,8 @@ import threading
 import numpy as np
 import torch
 
-from lamsa_tpu.io.sam import OP_D, OP_I, OP_M, cigar_pairs
-from lamsa_tpu.utils.timers import GLOBAL as STATS
+from lamsa_tpu_torch.io.sam import OP_D, OP_I, OP_M, cigar_pairs
+from lamsa_tpu_torch.utils.timers import GLOBAL as STATS
 from lamsa_tpu_torch.ops.dp_chain import dp_tb_adiag_gather, dp_tb_gather
 from lamsa_tpu_torch.ops.wire import a_pad, collect_group, global_lo, \
     pack_desc
@@ -367,7 +367,7 @@ class DpBatcher:
         return sl, M, W, dev, adiag
 
     def _collect(self, sl, M, W, dev, topdown=False):
-        from lamsa_tpu import native
+        from lamsa_tpu_torch import native
         with STATS.stage(f"dp_collect_{M}x{W}"):
             cigars, score, si, sd = collect_group(dev, M, topdown)
         K = len(sl["idx"])
@@ -424,7 +424,7 @@ def md_tag(q: np.ndarray, t: np.ndarray, cigar) -> str:
     (q = query window, t = reference window). Matches samtools calmd
     semantics: match-run lengths, mismatch ref bases, ^-prefixed
     deletion runs; insertions are invisible to MD."""
-    from lamsa_tpu.io.fasta import BASES
+    from lamsa_tpu_torch.io.fasta import BASES
     out = []
     run = 0
     i = j = 0

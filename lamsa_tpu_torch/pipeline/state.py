@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lamsa_tpu.index.fmindex import FmIndex
+from lamsa_tpu_torch.index.fmindex import FmIndex
 from lamsa_tpu_torch.ops.fm import fm_device_state
 from lamsa_tpu_torch.ops.wire import pack_codes_words
 

@@ -8,10 +8,10 @@ import numpy as np
 import pytest
 import torch
 
-from lamsa_tpu.config import ScoreParams
 from lamsa_tpu.ops import banded_sw as jbs
 from lamsa_tpu.ops import banded_sw_adiag as jadiag
 from lamsa_tpu.pipeline.aln import Aligner as JaxAligner
+from lamsa_tpu_torch.config import ScoreParams
 from lamsa_tpu_torch.ops import wire
 from lamsa_tpu_torch.ops.banded_sw_adiag import (banded_sw_adiag,
                                                  banded_sw_adiag_plain)
@@ -202,9 +202,11 @@ def test_engines_give_identical_sam(monkeypatch):
     in the first run only, and SAM is byte-identical (and equal to the
     JAX CPU engine's)."""
     from lamsa_tpu import sim
-    from lamsa_tpu.io.sam import format_sam_record
-    from lamsa_tpu.utils.timers import GLOBAL as STATS
+    from lamsa_tpu.io.sam import format_sam_record as jax_format
+    from lamsa_tpu_torch.io.sam import format_sam_record
+    from lamsa_tpu_torch.ops.testing import port_world
     from lamsa_tpu_torch.pipeline.aln import Aligner
+    from lamsa_tpu_torch.utils.timers import GLOBAL as STATS
     from tests.test_e2e import CFG, make_ref
 
     rng = np.random.default_rng(5)
@@ -212,16 +214,17 @@ def test_engines_give_identical_sam(monkeypatch):
     reads = sim.simulate_reads(rng, genome, 8, read_len=(300, 1500),
                                sub=0.02, ins=0.03, dele=0.03,
                                sv_fraction=0.2, name_prefix="eng")
+    own = port_world(ref, idx, CFG)
     sams, adiag = [], []
     for enabled in (True, False):
         monkeypatch.setattr(extend, "ADIAG_ENABLED", enabled)
         STATS.reset()
-        out = Aligner(ref, idx, CFG, device="cpu").align_batch(reads)
+        out = Aligner(*own, device="cpu").align_batch(reads)
         sams.append([format_sam_record(r) for rs in out for r in rs])
         adiag.append(STATS.counters.get("dp_adiag_instances", 0))
     assert adiag[0] > 0 and adiag[1] == 0
     assert sams[0] == sams[1]
-    want = [format_sam_record(r) for rs in
+    want = [jax_format(r) for rs in
             JaxAligner(ref, idx, CFG).align_batch(reads) for r in rs]
     assert sams[0] == want
 
@@ -243,3 +246,32 @@ def test_adiag_wrappers_check_inputs():
     with pytest.raises(ValueError):
         traceback_adiag(torch.zeros((4, 128, 64), dtype=torch.int32),
                         m, m, m, M=100)
+
+
+@pytest.mark.parametrize("M,W", [(128, 128), (512, 256)])
+def test_deletion_batch_runs_e_across_thread_edges(M, W):
+    """The thread-edge cases of the DP kernels' tests: in every instance
+    of make_deletion_batch some row sets the E-extension bit on at least
+    W/2 - 17 consecutive lanes, more than the 8 lanes any kernel thread
+    owns, so the E chain (and its tie bit, carried across a thread edge
+    by a shuffle) crosses thread edges; the antidiagonal DP agrees with
+    the row DP on the global score."""
+    from lamsa_tpu_torch.ops.banded_sw_row import banded_sw_row_plain
+    from lamsa_tpu_torch.ops.testing import make_deletion_batch, unpack_rows
+    args = [_t(a) for a in make_deletion_batch(np.random.default_rng(M),
+                                               4, M, W)]
+    zero = torch.zeros_like(args[2])
+    row = banded_sw_row_plain(*args, zero, **KW)
+    e_ext = (unpack_rows(row["dirs32"]) >> 2) & 1
+    for b in range(4):
+        e = e_ext[b, :int(args[2][b])].to(torch.int32)
+        run = torch.zeros_like(e[:, 0])
+        best = 0
+        for d in range(W):
+            run = (run + 1) * e[:, d]
+            best = max(best, int(run.max()))
+        assert best >= W // 2 - 17, (b, best)
+    ad = banded_sw_adiag(*args, **KW)
+    g_a = wire.extract_scores(ad["h_last"], *args[2:])[0]
+    g_r = wire.extract_scores(row["h_last"], *args[2:])[0]
+    assert torch.equal(g_a, g_r)

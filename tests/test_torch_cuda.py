@@ -10,8 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from lamsa_tpu.config import ScoreParams
-from lamsa_tpu_torch.ops.testing import (adiag_live, make_batch,
+from lamsa_tpu_torch.config import ScoreParams
+from lamsa_tpu_torch.ops.testing import (adiag_live, edge_batch, make_batch,
                                          make_global_chunk, make_globals,
                                          make_zdrop_batch, unpack_rows)
 
@@ -129,6 +129,37 @@ def test_dp_tb_gather_cuda_matches_cpu(dev):
     assert torch.equal(wires[0], wires[1])
 
 
+@pytest.mark.parametrize("B", [1, 37])
+@pytest.mark.parametrize("M,W", [(5120, 256), (128, 128)])
+def test_dp_kernels_small_chunks_and_thread_edges(dev, M, W, B):
+    """Fewer instances than SMs (the persistent warps run out of work at
+    once), the last one with a W/2 - 16 base deletion whose E chain
+    crosses every thread edge of the lane split; for the row DP also
+    N-block extensions with zdrop. Both DP kernels exactly equal their
+    plain versions."""
+    from lamsa_tpu_torch.ops import banded_sw_adiag as ad
+    from lamsa_tpu_torch.ops import banded_sw_row as row
+    rng = np.random.default_rng(M + B)
+    q, t_win, m_len, n_len, lo = _on(dev, edge_batch(rng, B, M, W))
+    cases = [(q, t_win, m_len, n_len, lo, torch.zeros_like(m_len))]
+    if B > 1:
+        cases.append(tuple(_on(dev, make_zdrop_batch(rng, B, M, W))))
+    for args in cases:
+        got = row.banded_sw_row(*args, **KW)
+        want = row.banded_sw_row_plain(*args, **KW)
+        torch.cuda.synchronize()
+        _assert_dp_equal(got, want, args[2])
+    args = _on(dev, edge_batch(rng, B, M, W, adiag=True))
+    got = ad.banded_sw_adiag(*args, **KW)
+    want = ad.banded_sw_adiag_plain(*args, **KW)
+    torch.cuda.synchronize()
+    live = adiag_live(args[2], args[3], got["dirs32a"].shape[1])
+    assert torch.equal(torch.where(live, got["dirs32a"], 0),
+                       torch.where(live, want["dirs32a"], 0))
+    assert torch.equal(got["h_last"].clamp(min=-20000),
+                       want["h_last"].clamp(min=-20000))
+
+
 ADIAG_SHAPES = [(128, 128), (256, 256), (512, 128), (5120, 256)]
 
 
@@ -213,7 +244,7 @@ def test_wrappers_check_inputs_on_cuda(dev):
 def fm_world():
     """A 60 kb genome with a tandem repeat, its FM index (sa_rate 16)
     and 10 reads of 300-900 bp on both strands with substitutions."""
-    from lamsa_tpu.index.fmindex import FmIndex
+    from lamsa_tpu_torch.index.fmindex import FmIndex
     rng = np.random.default_rng(21)
     unit = rng.integers(0, 4, 40).astype(np.uint8)
     codes = np.concatenate([rng.integers(0, 4, 30000).astype(np.uint8),

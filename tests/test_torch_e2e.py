@@ -4,8 +4,9 @@ be byte-identical (format_sam_record) on the tests/test_e2e.py worlds:
 noisy reads, SV reads, an inversion, 25% error (adaptive re-seed and
 merge-rechain fire), and a repeat with secondary alignments. Global gap
 fills ride the antidiagonal pair (its plain versions here) and
-extensions the row pair, as in the JAX package. Also: the port's
-align_reads equals its align_batch."""
+extensions the row pair, as in the JAX package. Each side gets its own
+reference, index and config, built from the same codes. Also: the
+port's align_reads equals its align_batch."""
 
 import numpy as np
 import torch
@@ -15,25 +16,34 @@ from lamsa_tpu.config import preset
 from lamsa_tpu.index.kmer import KmerIndex
 from lamsa_tpu.io.fasta import encode_seq
 from lamsa_tpu.io.refpack import PackedReference
-from lamsa_tpu.io.sam import format_sam_record
+from lamsa_tpu.io.sam import format_sam_record as jax_format
 from lamsa_tpu.pipeline.aln import Aligner as JaxAligner
-from lamsa_tpu.utils.timers import GLOBAL as STATS
+from lamsa_tpu_torch.io.sam import format_sam_record
+from lamsa_tpu_torch.ops.testing import port_world
 from lamsa_tpu_torch.pipeline.aln import Aligner, align_reads
+from lamsa_tpu_torch.utils.timers import GLOBAL as STATS
 from tests.test_e2e import CFG, make_ref
 
 torch.set_num_threads(1)
 
 
-def _sam(out):
-    return [format_sam_record(r) for recs in out for r in recs]
+def _sam(out, fmt=format_sam_record):
+    return [fmt(r) for recs in out for r in recs]
+
+
+def _port_sam(ref, idx, cfg, reads):
+    """The port's SAM on its own objects for the JAX side's ref / idx /
+    cfg (same codes and values)."""
+    return _sam(Aligner(*port_world(ref, idx, cfg), device="cpu")
+                .align_batch(reads))
 
 
 def _same_sam(ref, idx, cfg, reads, gap_fills=True):
     """gap_fills: the world has global gap fills, which must ride the
     antidiagonal pair."""
-    want = _sam(JaxAligner(ref, idx, cfg).align_batch(reads))
+    want = _sam(JaxAligner(ref, idx, cfg).align_batch(reads), jax_format)
     STATS.reset()
-    got = _sam(Aligner(ref, idx, cfg, device="cpu").align_batch(reads))
+    got = _port_sam(ref, idx, cfg, reads)
     assert (STATS.counters.get("dp_adiag_instances", 0) > 0) == gap_fills
     assert len(got) == len(want) >= len(reads)
     for i, (g, w) in enumerate(zip(got, want)):
@@ -80,9 +90,9 @@ def test_high_error_adaptive_reseed_sam_identical():
                                sub=0.13, ins=0.06, dele=0.06,
                                sv_fraction=0.2, name_prefix="e25")
     cfg = preset("pacbio")
-    want = _sam(JaxAligner(ref, idx, cfg).align_batch(reads))
+    want = _sam(JaxAligner(ref, idx, cfg).align_batch(reads), jax_format)
     STATS.reset()
-    got = _sam(Aligner(ref, idx, cfg, device="cpu").align_batch(reads))
+    got = _port_sam(ref, idx, cfg, reads)
     assert STATS.counters.get("seed_densified_reads", 0) > 0
     assert STATS.counters.get("dp_adiag_instances", 0) > 0
     assert got == want
@@ -112,8 +122,9 @@ def test_align_reads_equals_align_batch():
     reads = sim.simulate_reads(rng, genome, 12, read_len=(300, 1500),
                                sub=0.02, ins=0.03, dele=0.03,
                                sv_fraction=0.2, name_prefix="pipe")
-    aligner = Aligner(ref, idx, CFG, device="cpu")
+    ref, idx, cfg = port_world(ref, idx, CFG)
+    aligner = Aligner(ref, idx, cfg, device="cpu")
     whole = _sam(aligner.align_batch(reads))
-    streamed = _sam(align_reads(ref, idx, reads, CFG, batch_size=5,
+    streamed = _sam(align_reads(ref, idx, reads, cfg, batch_size=5,
                                 aligner=aligner))
     assert streamed == whole

@@ -11,6 +11,8 @@ the CPU. Exact equality everywhere (integer outputs):
   SV reads, and on the 28%-error ont world where the adaptive re-seed
   with 1-edit tracks fires (chunked retry = unchunked); the >1 Gb
   seg-quota rules; the CLI's index --fm + aln against the JAX CLI.
+
+Each side gets its own FmIndex and reference, built from the same codes.
 """
 
 import os
@@ -26,16 +28,20 @@ from lamsa_tpu.config import preset
 from lamsa_tpu.index.fmindex import FmIndex
 from lamsa_tpu.io.fasta import encode_seq
 from lamsa_tpu.io.refpack import PackedReference
-from lamsa_tpu.io.sam import format_sam_record
+from lamsa_tpu.io.sam import format_sam_record as jax_format
 from lamsa_tpu.ops import fm as jfm
 from lamsa_tpu.pipeline.aln import Aligner as JaxAligner
 from lamsa_tpu.pipeline.seeding import make_qpos_grid
 from lamsa_tpu.pipeline.seeding import seed_hits_fm as jax_seed_hits_fm
-from lamsa_tpu.utils.timers import GLOBAL as STATS
+from lamsa_tpu_torch.index.fmindex import FmIndex as PortFmIndex
+from lamsa_tpu_torch.io.refpack import PackedReference as PortReference
+from lamsa_tpu_torch.io.sam import format_sam_record
 from lamsa_tpu_torch.ops import fm
+from lamsa_tpu_torch.ops.testing import port_world
 from lamsa_tpu_torch.pipeline import aln as port_aln
 from lamsa_tpu_torch.pipeline.aln import Aligner
 from lamsa_tpu_torch.pipeline.seeding import seed_hits_fm
+from lamsa_tpu_torch.utils.timers import GLOBAL as STATS
 
 torch.set_num_threads(1)
 
@@ -60,7 +66,8 @@ def world(request):
                             np.tile(unit, 30),
                             rng.integers(0, 4, 14800).astype(np.uint8)])
     fmi = FmIndex.build(codes, sa_rate=request.param)
-    return codes, fmi, jfm.device_arrays(fmi), fm.fm_device_state(fmi, "cpu")
+    own = PortFmIndex.build(codes, sa_rate=request.param)
+    return codes, fmi, jfm.device_arrays(fmi), fm.fm_device_state(own, "cpu")
 
 
 def _windows(rng, codes, B, S, k):
@@ -203,8 +210,8 @@ def test_seed_hits_fm_matches_jax(world, case):
 
 # ----------------------------------------------------------- end to end
 
-def _sam(out):
-    return [format_sam_record(r) for recs in out for r in recs]
+def _sam(out, fmt=format_sam_record):
+    return [fmt(r) for recs in out for r in recs]
 
 
 def _fm_ref(length, seed=42):
@@ -231,8 +238,8 @@ def test_fm_noisy_and_sv_reads_sam_identical(fm400k):
                                 sub=0.01, ins=0.04, dele=0.03,
                                 sv_fraction=1.0, name_prefix="sv")
     cfg = preset("pacbio")
-    want = _sam(JaxAligner(ref, fmi, cfg).align_batch(reads))
-    aligner = Aligner(ref, fmi, cfg, device="cpu")
+    want = _sam(JaxAligner(ref, fmi, cfg).align_batch(reads), jax_format)
+    aligner = Aligner(*port_world(ref, fmi, cfg), device="cpu")
     assert aligner.seed_backend == "fm" and aligner.k == 13
     got = _sam(aligner.align_batch(reads))
     assert got == want
@@ -249,18 +256,19 @@ def test_fm_28pct_error_ont_sam_identical(fm400k, monkeypatch):
                                sub=0.15, ins=0.07, dele=0.06,
                                name_prefix="e28")
     cfg = preset("ont")
-    want = _sam(JaxAligner(ref, fmi, cfg).align_batch(reads))
+    want = _sam(JaxAligner(ref, fmi, cfg).align_batch(reads), jax_format)
+    own = port_world(ref, fmi, cfg)
     STATS.reset()
-    got = _sam(Aligner(ref, fmi, cfg, device="cpu").align_batch(reads))
+    got = _sam(Aligner(*own, device="cpu").align_batch(reads))
     n_dense = STATS.counters.get("seed_densified_reads", 0)
     assert n_dense > 8                                 # chunks of 8 below
     assert got == want
     monkeypatch.setattr(port_aln, "_RETRY_BUDGET_ELEMS", 1)
-    chunked = _sam(Aligner(ref, fmi, cfg, device="cpu").align_batch(reads))
+    chunked = _sam(Aligner(*own, device="cpu").align_batch(reads))
     assert chunked == want
 
 
-class _BigRef(PackedReference):
+class _BigRef(PortReference):
     """A small reference that reports a whole-genome total length."""
 
     @property
@@ -270,9 +278,9 @@ class _BigRef(PackedReference):
 
 def test_seg_quota_rules_above_1gb(fm400k, monkeypatch):
     genome, ref, fmi = fm400k
+    ref, fmi, cfg = port_world(ref, fmi, preset("pacbio"))
     big = _BigRef(names=ref.names, offsets=ref.offsets, codes=ref.codes,
                   amb_runs=ref.amb_runs)
-    cfg = preset("pacbio")
     lens = np.array([1000, 5000, 20000])
     a = Aligner(big, fmi, cfg, device="cpu")
     assert a.k == 16 and a._quota_on()
@@ -298,8 +306,8 @@ def test_seg_quota_rules_above_1gb(fm400k, monkeypatch):
 
 def test_cli_fm_index_and_aln_match_jax_cli(tmp_path):
     """index --fm and aln --device cpu through the port's CLI: the SAM
-    body equals the JAX CLI's on the same index, and jax is never
-    imported by the port."""
+    body equals the JAX CLI's on the index the port wrote, and neither
+    jax nor the JAX package is ever imported by the port."""
     from lamsa_tpu.io.fasta import write_fasta, write_fastq
     rng = np.random.default_rng(8)
     genome = sim.random_genome(rng, 40000)
@@ -315,6 +323,8 @@ def test_cli_fm_index_and_aln_match_jax_cli(tmp_path):
             "rc = rc or main(['aln', '--device', 'cpu', '-o', sys.argv[3],"
             " sys.argv[1], sys.argv[2]])\n"
             "assert 'jax' not in sys.modules\n"
+            "assert not [m for m in sys.modules if m == 'lamsa_tpu'"
+            " or m.startswith('lamsa_tpu.')]\n"
             "sys.exit(rc)\n")
     port_out, jax_out = str(tmp_path / "p.sam"), str(tmp_path / "j.sam")
     r = subprocess.run([sys.executable, "-c", code, fa, fq, port_out],

@@ -16,6 +16,7 @@ from lamsa_tpu.ops.chain import chain_hits as jax_chain_hits
 from lamsa_tpu.pipeline.seeding import make_qpos_grid, seed_hits as jax_seed
 from lamsa_tpu.pipeline.seeding import seed_rotation as jax_rotation
 from lamsa_tpu.pipeline.seeding import table_lookup as jax_lookup
+from lamsa_tpu_torch.index.kmer import KmerIndex as PortKmerIndex
 from lamsa_tpu_torch.ops.chain import chain_hits
 from lamsa_tpu_torch.pipeline import seeding
 from lamsa_tpu_torch.pipeline.state import device_state
@@ -57,7 +58,7 @@ def test_seed_hits_match_jax(repeat_world, k, step, C):
         pass
     ref = _Ref()
     ref.codes = codes
-    st = device_state(ref, idx, "cpu")
+    st = device_state(ref, PortKmerIndex.build(codes, k), "cpu")
     args = (torch.from_numpy(rc), torch.from_numpy(rl),
             torch.from_numpy(grid.astype(np.int64)))
     got = seeding.seed_hits(*args, st["keys"], st["starts"], st["counts"],
@@ -98,7 +99,8 @@ def test_table_lookup_edges_match_jax():
                                    idx.starts, idx.counts,
                                    idx.positions.astype(np.uint32), C,
                                    jax_rotation(grid))
-    st = device_state(type("R", (), {"codes": codes})(), idx, "cpu")
+    st = device_state(type("R", (), {"codes": codes})(),
+                      PortKmerIndex.build(codes, k), "cpu")
     pos, ok = seeding.table_lookup(
         torch.from_numpy(keys), st["keys"], st["starts"], st["counts"],
         st["positions"], C, seeding.seed_rotation(torch.from_numpy(grid)))

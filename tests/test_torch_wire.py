@@ -13,10 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from lamsa_tpu.config import ScoreParams
 from lamsa_tpu.ops import banded_sw as jbs
 from lamsa_tpu.ops import banded_sw_pallas, traceback_pallas
 from lamsa_tpu.pipeline.aln import Aligner as JaxAligner
+from lamsa_tpu_torch.config import ScoreParams
 from lamsa_tpu_torch.ops import wire
 from lamsa_tpu_torch.ops.dp_chain import dp_tb_gather
 
@@ -208,3 +208,19 @@ def test_dp_tb_gather_chunk_matches_jax(rng, jax_interpret_kernels):
                        zdrop=S.zdrop).numpy()
     np.testing.assert_array_equal(got, want)
     assert got.shape == (Bp, M // 32 + wire.compact_words(M) + 3)
+
+
+def test_longest_first_orders_instances_by_descending_steps():
+    """The DP kernels' instance order: descending step count, ties in
+    index order, int32, on the device of its input."""
+    steps = torch.tensor([5, 9, 5, 0, 9, 12, 1], dtype=torch.int32)
+    order = wire.longest_first(steps)
+    assert order.dtype == torch.int32 and order.device == steps.device
+    assert order.tolist() == [5, 1, 4, 0, 2, 6, 3]
+    rng = np.random.default_rng(4)
+    steps = torch.from_numpy(rng.integers(0, 50, 300).astype(np.int32))
+    order = wire.longest_first(steps).long()
+    s = steps[order]
+    assert bool((s[:-1] >= s[1:]).all())
+    tie = s[:-1] == s[1:]
+    assert bool((order[:-1][tie] < order[1:][tie]).all())

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py             # one CUDA card, no arguments
     python3 chip_smoke.py --profile   # only the profile phase (below)
+    python3 chip_smoke.py --tiles     # only the walkers' tile sizes (below)
 
 Phases (any failure exits non-zero without a result line):
   1. set-up: require CUDA, print the card's name and power limit
@@ -15,7 +16,8 @@ Phases (any failure exits non-zero without a result line):
         with an N block with zdrop off and on (direction bytes of rows
         <= m, best cell, h_last through the -20000 floor; zdrop must
         change the best cell of some instance), and row traceback from
-        global, extension-best and row-0 starts (step words, terminals);
+        global, extension-best and row-0 starts (step words, terminals),
+        then walks built to cross the walker's tile edges (below);
      b. the antidiagonal pair on even-lo global instances with indels
         and N codes, one a 35-base deletion and one a deletion ladder:
         adiag DP (direction words below m + n, h_last through the
@@ -23,17 +25,29 @@ Phases (any failure exits non-zero without a result line):
         (opbits, events, term0, n_ev; both stress instances must
         overflow, the 35-base run only where events are narrow); adiag
         DP and walker times beside the row pair's on the same instances;
+        then walks across the walker's tile edges;
      c. both DP kernels on chunks of 1 and 37 instances at (5120, 256)
         and (128, 128), each ending in a long deletion whose E chain
-        crosses every thread edge, plus zdrop extensions (exact);
+        crosses every thread edge, plus zdrop extensions (exact), and
+        both walkers on tile-edge walks of 1 and 37 instances there;
+     Tile-edge walks (ops/testing.py walker_edge_walks): a deletion
+     longer than the row walker's lane window, an insertion run longer
+     than 32 rows, mixed instances, and random direction words whose
+     walks leave the band on both sides. On them the kernel must equal
+     its plain version, the reload path must have been taken (the
+     kernel counts the tiles it stages and its blocking reloads into a
+     debug output of the C entry), and on the instances with the most
+     reloads those counts must equal the counts of the numpy mirror of
+     its tile schedule;
   3. end to end: the config-1 world (lamsa_tpu_torch/worlds.py, a copy
      of bench.py's: 4.6 Mb genome, k=13, 512 reads of 1-5 kb, 15% SV
      reads) through align_reads on the card with batch size 256, after
      one warm batch. Prints reads/s, the stage breakdown with the
      chain_hits loop's share, the four kernels' launch counts in that
      run (each must be > 0), then each kernel's device time in one more
-     pass under torch.profiler (e2e_ms) and each DP wrapper's (the
-     kernel, the instance order's sort and the counter's memset),
+     pass under torch.profiler (e2e_ms), each DP wrapper's (the
+     kernel, the instance order's sort and the counter's memset) and
+     that of wire.compact_encode, the torch code after every row walk,
      part recall / read accuracy
      (part recall must be >= 0.99), checks the SAM of the first 32 reads
      byte for byte against the port's CPU path (the plain versions), and
@@ -72,6 +86,14 @@ library_ms null, e2e_ms) and the result line
 --profile runs set-up and then, on the same world, three timed
 align_reads passes and one under torch.profiler (device busy share,
 busiest device entries); its last line is a JSON object {"profile": ...}.
+
+--tiles rebuilds the kernels with each tile shape of TILE_VARIANTS for
+the two walkers (the committed shape first) and times both walkers at
+all 9 buckets on the phase-2 instances, at B = CHUNK_BY_M and on their
+first 128 instances, and the row walker on chunks whose every instance
+carries a W/2 - 16 deletion (the cost of its leftward D-run scan); every
+variant's outputs equal the first's. Its last line is a JSON object
+{"tiles": ...}.
 """
 
 from __future__ import annotations
@@ -124,6 +146,10 @@ KERNEL_NAMES = {        # kernel name fragments in a device trace
     "traceback_adiag": "traceback_adiag_kernel",
 }
 DP_WRAPPERS = ("banded_sw_row", "banded_sw_adiag")
+BRACKETED = DP_WRAPPERS + ("compact_encode",)   # timed by name in phase 3
+# phase-2 sums of the walkers when one thread walked each instance
+# through device memory (H100 80GB HBM3, 700 W; PERF.md section 6)
+ONE_THREAD_WALK_MS = {"traceback_row": 5.311, "traceback_adiag": 5.884}
 
 
 def profiled(fn, ok, what, tries=3):
@@ -159,7 +185,8 @@ def kernel_device_ms(fn):
     """Run fn() once under torch.profiler. Returns (per kernel, its summed
     device ms; per DP wrapper, the device work its calls ran, by name:
     the kernel, longest_first's sort and the counter's memset, as
-    (ms, count)). To tell the wrappers' work apart, each DP wrapper call
+    (ms, count), and the same for wire.compact_encode; the bracketed
+    names in call order). To tell this work apart, each such call
     that the pipeline makes (through ops/dp_chain.py) is bracketed on its
     stream by two marker kernels (torch.cuda._sleep, whose kernel is
     spin_kernel), and the device work
@@ -168,7 +195,7 @@ def kernel_device_ms(fn):
     import torch
 
     from lamsa_tpu_torch.ops import dp_chain
-    orig = {n: getattr(dp_chain, n) for n in DP_WRAPPERS}
+    orig = {n: getattr(dp_chain, n) for n in BRACKETED}
     order = []                  # the wrappers called, in launch order
 
     def bracketed(name, f):
@@ -201,7 +228,7 @@ def kernel_device_ms(fn):
         names = {}
         for _, _, n in dev:
             names[n[:50]] = names.get(n[:50], 0) + 1
-        fail(f"{len(marks)} marker kernels for {len(order)} DP wrapper "
+        fail(f"{len(marks)} marker kernels for {len(order)} bracketed "
              f"calls; device events by name: "
              f"{sorted(names.items(), key=lambda kv: -kv[1])[:12]}")
     kern = dict.fromkeys(KERNEL_NAMES, 0.0)
@@ -209,13 +236,13 @@ def kernel_device_ms(fn):
         for k, frag in KERNEL_NAMES.items():
             if frag in name:
                 kern[k] += (e - s) / 1e3
-    wrap = {w: {} for w in DP_WRAPPERS}     # wrapper -> name -> (ms, n)
+    wrap = {w: {} for w in BRACKETED}       # wrapper -> name -> (ms, n)
     for c, w in enumerate(order):
         for s, e, name in dev[marks[2 * c] + 1:marks[2 * c + 1]]:
             if not name.startswith("Memcpy"):
                 ms, n = wrap[w].get(name, (0.0, 0))
                 wrap[w][name] = (ms + (e - s) / 1e3, n + 1)
-    return kern, wrap
+    return kern, wrap, list(order)
 
 
 def dp_kernel_ms(calls, reps=3):
@@ -341,6 +368,79 @@ def cuda_ms_once(fn):
     return out, a.elapsed_time(b)
 
 
+N_EDGE_WALKS = 4        # instances per tile-edge case in phases 2a / 2b
+N_MIRRORED = 4          # of them all, held to the mirror's tile counts
+
+
+def edge_chunk(dev, kw, rng, M, W, B, kind):
+    """The tile-edge walks of ops/testing.py walker_edge_walks for one
+    walker ("row" or "adiag"), B instances of each of its three cases,
+    as one chunk: the walker's arguments, concatenated case after case."""
+    import torch
+
+    from lamsa_tpu_torch.ops.testing import walker_edge_walks
+    walks = [walk for _name, _kind, walk in walker_edge_walks(
+        rng, B, M, W, dev, kinds=(kind,), **kw)]
+    return tuple(torch.cat(xs) for xs in zip(*walks))
+
+
+def check_edge_chunk(kind, walk, want, M, W, chunk=0):
+    """One walker's kernel on tile-edge walks, launched with its debug
+    output: it must equal `want` (the plain version's outputs on the same
+    walks); it must have reloaded a tile on some walk; and on the
+    N_MIRRORED instances with the most reloads its counts of tiles
+    staged and of blocking reloads must equal those of the numpy mirror
+    of its schedule on the same words. With chunk = k the walks are
+    launched k at a time, and the first of every k is also launched
+    alone, as a chunk of 1, and must give the same outputs and counts.
+    Returns (tiles staged, blocking reloads)."""
+    import torch
+
+    from lamsa_tpu_torch.ops import testing as T
+    extra = {} if kind == "row" else {"M": M}
+    tiled = T.traceback_row_tiled if kind == "row" \
+        else T.traceback_adiag_tiled
+    n = walk[0].shape[0]
+    where = f"the {kind} walker on {n} tile-edge walks at M={M} W={W}"
+
+    def hold(got, want, what):
+        for g, w_ in zip(got, want):
+            if not torch.equal(g, w_):
+                e = int((g.to(torch.int64) - w_.to(torch.int64)).abs().max())
+                fail(f"{where}{what} != plain (max abs err {e})")
+
+    def launch(lo, hi):
+        part = tuple(x[lo:hi].contiguous() for x in walk)
+        out = T.walker_counts_cuda(kind, *part, **extra)
+        torch.cuda.synchronize()
+        return out
+
+    parts = [launch(b, b + (chunk or n)) for b in range(0, n, chunk or n)]
+    got = tuple(torch.cat(xs) for xs in zip(*(g for g, _ in parts)))
+    counts = torch.cat([c for _, c in parts])
+    hold(got, want, f" ({chunk or n} at a time)")
+    for b in range(0, n, chunk) if chunk else ():
+        got1, counts1 = launch(b, b + 1)
+        hold(got1, tuple(x[b:b + 1] for x in want),
+             f", instance {b} as a chunk of 1,")
+        if not torch.equal(counts1[0], counts[b]):
+            fail(f"{where}: instance {b} staged {counts1[0].tolist()} alone "
+                 f"and {counts[b].tolist()} in its chunk")
+    counts = counts.cpu()
+    tiles, reloads = counts.sum(dim=0).tolist()
+    if reloads == 0:
+        fail(f"{where}: no walk made the kernel reload a tile")
+    pick = torch.argsort(counts[:, 1], descending=True,
+                         stable=True)[:N_MIRRORED]
+    _, mirror = tiled(*(x.cpu()[pick] for x in walk), **extra)
+    if not torch.equal(counts[pick], mirror):
+        bad = int((counts[pick] != mirror).any(dim=1).nonzero()[0])
+        fail(f"{where}: the kernel staged {counts[pick][bad].tolist()} "
+             f"(tiles, blocking reloads) on instance {int(pick[bad])}, "
+             f"the mirror of its schedule {mirror[bad].tolist()}")
+    return tiles, reloads
+
+
 def phase_kernels(dev, scores, rng):
     import torch
 
@@ -369,7 +469,8 @@ def phase_kernels(dev, scores, rng):
     log("phase 2a: row pair vs plain versions (exact), times in ms per call "
         "(global instances, zdrop off)")
     log(f"{'M':>5} {'W':>4} {'B':>5}  {'dp':>9} {'dp_plain':>9}  "
-        f"{'tb':>9} {'tb_plain':>9}  zdrop_changed_best")
+        f"{'tb':>9} {'tb_plain':>9}  zdrop_changed_best  "
+        f"edge-walk reloads/tiles")
     for M, W in BUCKETS:
         B = CHUNK_BY_M[(M, W)]
         q, t_win, m_len, n_len, lo = on_dev(make_batch(rng, B, M, W))
@@ -408,9 +509,13 @@ def phase_kernels(dev, scores, rng):
         ext = res["ext_zdrop_on"]
         si_e = ext["best"][:, 1].contiguous()
         si_e[2] = 0
+        # the tile-edge walks ride the second chunk, so that the first
+        # stays the one that is timed
+        edge = edge_chunk(dev, kw, rng, M, W, N_EDGE_WALKS, "row")
+        ext_walk = (ext["dirs32"], zlo, si_e, ext["best"][:, 2].contiguous())
         walks = [(res["global"]["dirs32"], lo, m_len.clone(),
                   (n_len - m_len - lo).contiguous()),
-                 (ext["dirs32"], zlo, si_e, ext["best"][:, 2].contiguous())]
+                 tuple(torch.cat(xs) for xs in zip(ext_walk, edge))]
         tb_plain_ms = 0.0
         for i, (dirs32, lo_, si, sd) in enumerate(walks):
             got = traceback_row(dirs32, lo_, si, sd)
@@ -423,12 +528,15 @@ def phase_kernels(dev, scores, rng):
                 fail(f"traceback_row != plain at M={M} W={W} "
                      f"(max abs err {e})")
             err["tb"] = max(err["tb"], e)
+        tiles, reloads = check_edge_chunk(
+            "row", edge, tuple(x[B:] for x in want), M, W)
         tb_ms = cuda_ms(lambda: traceback_row(*walks[0]), 3)
         add_bound(bnd["dp"], *row_dp_work(cases["global"], W))
         add_bound(bnd["tb"], *walk_work(
             walks[0][1:], traceback_row(*walks[0]), m_len, n_len))
         log(f"{M:>5} {W:>4} {B:>5}  {dp_ms:9.3f} {dp_plain_ms:9.3f}  "
-            f"{tb_ms:9.3f} {tb_plain_ms:9.3f}  {changed}/{B}")
+            f"{tb_ms:9.3f} {tb_plain_ms:9.3f}  {changed}/{B}  "
+            f"{reloads}/{tiles}")
         tot["dp"] += dp_ms
         tot["dp_plain"] += dp_plain_ms
         tot["tb"] += tb_ms
@@ -436,7 +544,12 @@ def phase_kernels(dev, scores, rng):
     log(f"phase 2a ok: the row pair equals its plain versions at all "
         f"{len(BUCKETS)} buckets (global instances; N-block extensions "
         f"with zdrop off and on, zdrop firing in each bucket; global, "
-        f"extension-best and row-0 traceback starts)")
+        f"extension-best and row-0 traceback starts; tile-edge walks with "
+        f"the kernel's tile counts equal to its mirror's and a reload in "
+        f"each bucket)")
+    log(f"row walker, 9 buckets summed: {tot['tb']:.3f} ms (one thread per "
+        f"instance through device memory: "
+        f"{ONE_THREAD_WALK_MS['traceback_row']} ms)")
     return err, tot, bnd
 
 
@@ -468,7 +581,8 @@ def phase_adiag(dev, scores, rng):
     log("phase 2b: antidiagonal pair vs plain versions (exact) and vs the "
         "row pair on the same even-lo global instances, ms per call")
     log(f"{'M':>5} {'W':>4} {'B':>5}  {'adiag_dp':>9} {'row_dp':>9} "
-        f"{'plain':>9}  {'walker':>9} {'row_tb':>9} {'plain':>9}  overflow")
+        f"{'plain':>9}  {'walker':>9} {'row_tb':>9} {'plain':>9}  overflow  "
+        f"edge-walk reloads/tiles")
     for M, W in BUCKETS:
         B = CHUNK_BY_M[(M, W)]
         q, t_win, m_len, n_len, lo = [
@@ -495,14 +609,21 @@ def phase_adiag(dev, scores, rng):
 
         sd = (n_len - m_len - lo).contiguous()
         walk = (got["dirs32a"], m_len, sd, (lo >> 1).contiguous())
-        tg = traceback_adiag(*walk, M=M)
+        # the tile-edge walks ride the same chunk, after the B instances
+        # (the times below are taken on the B instances alone)
+        edge = edge_chunk(dev, kw, rng, M, W, N_EDGE_WALKS, "adiag")
+        both = tuple(torch.cat(xs) for xs in zip(walk, edge))
+        tg = traceback_adiag(*both, M=M)
         tw, tb_plain_ms = cuda_ms_once(
-            lambda: traceback_adiag_plain(*walk, M=M))
+            lambda: traceback_adiag_plain(*both, M=M))
         e = max(diff(a, b) for a, b in zip(tg, tw))
         if e:
             fail(f"traceback_adiag != plain at M={M} W={W} "
                  f"(max abs err {e})")
         err["atb"] = max(err["atb"], e)
+        tiles, reloads = check_edge_chunk(
+            "adiag", edge, tuple(x[B:] for x in tw), M, W)
+        tg = tuple(x[:B] for x in tg)
         n_ev = tg[3].cpu().numpy()
         if n_ev[-1] != 0xFFFF or (not compact_wide(M)
                                   and n_ev[-2] != 0xFFFF):
@@ -518,14 +639,19 @@ def phase_adiag(dev, scores, rng):
         rtb_ms = cuda_ms(lambda: traceback_row(*rwalk), 3)
         log(f"{M:>5} {W:>4} {B:>5}  {adp_ms:9.3f} {rdp_ms:9.3f} "
             f"{dp_plain_ms:9.3f}  {atb_ms:9.3f} {rtb_ms:9.3f} "
-            f"{tb_plain_ms:9.3f}  {int((n_ev == 0xFFFF).sum())}/{B}")
+            f"{tb_plain_ms:9.3f}  {int((n_ev == 0xFFFF).sum())}/{B}  "
+            f"{reloads}/{tiles}")
         tot["adp"] += adp_ms
         tot["adp_plain"] += dp_plain_ms
         tot["atb"] += atb_ms
         tot["atb_plain"] += tb_plain_ms
     log(f"phase 2b ok: the antidiagonal pair equals its plain versions at "
         f"all {len(BUCKETS)} buckets, with event overflow in each; global "
-        f"scores equal the row DP's")
+        f"scores equal the row DP's; tile-edge walks with the kernel's tile "
+        f"counts equal to its mirror's and a reload in each bucket")
+    log(f"adiag walker, 9 buckets summed: {tot['atb']:.3f} ms (one thread "
+        f"per instance through device memory: "
+        f"{ONE_THREAD_WALK_MS['traceback_adiag']} ms)")
     return err, tot, bnd
 
 
@@ -536,7 +662,10 @@ def phase_edges(dev, scores, rng):
     and (128, 128); the last instance of each carries a W/2 - 16 base
     deletion whose E chain crosses every thread edge of the lane split
     on its way, and one chunk per shape is N-block extensions with
-    zdrop. Returns the max abs errors (must be 0)."""
+    zdrop. Then, per shape, both walkers on a chunk of 37 instances of
+    each tile-edge case and on single instances of it (check_edge_chunk).
+    Returns the DP kernels' max abs errors (must be 0; a walker that
+    differs fails at once)."""
     import torch
 
     from lamsa_tpu_torch.ops.banded_sw_adiag import (banded_sw_adiag,
@@ -545,6 +674,8 @@ def phase_edges(dev, scores, rng):
                                                    banded_sw_row_plain)
     from lamsa_tpu_torch.ops.testing import (adiag_live, edge_batch,
                                              make_zdrop_batch, unpack_rows)
+    from lamsa_tpu_torch.ops.traceback_adiag import traceback_adiag_plain
+    from lamsa_tpu_torch.ops.traceback_row import traceback_row_plain
 
     kw = dict(match=scores.match, mismatch=scores.mismatch,
               gapo=scores.gap_open, gape=scores.gap_ext)
@@ -590,10 +721,24 @@ def phase_edges(dev, scores, rng):
                 fail(f"banded_sw_adiag != plain at M={M} W={W} B={B} "
                      f"(max abs err {e})")
             err["adp"] = max(err["adp"], e)
+        # both walkers on three chunks of 37 tile-edge walks (one per
+        # case), and on the first instance of each alone (a chunk of 1)
+        seen = {}
+        for kind, plain, extra in (
+                ("row", traceback_row_plain, {}),
+                ("adiag", traceback_adiag_plain, {"M": M})):
+            edge = edge_chunk(dev, kw, rng, M, W, 37, kind)
+            seen[kind] = check_edge_chunk(kind, edge, plain(*edge, **extra),
+                                          M, W, chunk=37)
+        log(f"{M:>5} {W:>4}  walkers' blocking reloads / tiles staged on "
+            f"3 x 37 tile-edge walks: " + ", ".join(
+                f"{k} {r}/{t}" for k, (t, r) in seen.items()))
     log("phase 2c ok: both DP kernels equal their plain versions on "
         "chunks of 1 and 37 instances at (5120, 256) and (128, 128), a "
         "long deletion's E chain across every thread edge in each, and "
-        "N-block extensions with zdrop")
+        "N-block extensions with zdrop; both walkers equal theirs on "
+        "tile-edge walks of 1 and 37 instances, tile counts equal to the "
+        "mirror's, reloads taken")
     return err
 
 
@@ -607,20 +752,28 @@ def phase_fixed(dev, scores, rng):
     at B = CHUNK_BY_M and their first SMALL_CHUNK, once as they are and
     once with every m (for the adiag DP m and n) set to 0, so that only
     the fixed work runs. The staging is a part of that work, so its share
-    of the kernel's time is at most the printed share."""
+    of the kernel's time is at most the printed share. Beside them the
+    two walkers' kernel device time on the walks from (m, n) over the same
+    instances, at both sizes (no launch or allocation of the wrapper in
+    it, which the CUDA-event times of phases 2a / 2b include)."""
     import torch
 
     from lamsa_tpu_torch.ops.banded_sw_adiag import banded_sw_adiag
     from lamsa_tpu_torch.ops.banded_sw_row import banded_sw_row
     from lamsa_tpu_torch.ops.testing import make_batch, make_globals
+    from lamsa_tpu_torch.ops.traceback_adiag import traceback_adiag
+    from lamsa_tpu_torch.ops.traceback_row import traceback_row
     from lamsa_tpu_torch.pipeline.extend import BUCKETS, CHUNK_BY_M
 
     kw = dict(match=scores.match, mismatch=scores.mismatch,
               gapo=scores.gap_open, gape=scores.gap_ext)
     sums = {(k, size): [0.0, 0.0] for k in DP_WRAPPERS
             for size in ("phase2", "chunk")}
+    walk_sums = {(k, size): 0.0 for k in ("traceback_row", "traceback_adiag")
+                 for size in ("phase2", "chunk")}
     log("phase 2d: DP kernels' fixed per-instance work, device ms "
-        "(real call / every m = 0 / share)")
+        "(real call / every m = 0 / share), and the walkers' kernel "
+        "device ms")
     for M, W in BUCKETS:
         B = CHUNK_BY_M[(M, W)]
         zero = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -641,18 +794,44 @@ def phase_fixed(dev, scores, rng):
                           (lambda a=empty, f=fn: f(*a, **kw),
                            KERNEL_NAMES[name])]
                 keys.append((name, size, n))
+        n_dp = len(calls)
+        q, t_win, m, n_len, lo, _ = kinds[0][3]
+        row = banded_sw_row(*kinds[0][3], **kw)
+        walks = [("traceback_row", traceback_row,
+                  (row["dirs32"], lo, m.clone(),
+                   (n_len - m - lo).contiguous()), {})]
+        q, t_win, m, n_len, lo = kinds[1][3]
+        ad = banded_sw_adiag(*kinds[1][3], **kw)
+        walks.append(("traceback_adiag", traceback_adiag,
+                      (ad["dirs32a"], m, (n_len - m - lo).contiguous(),
+                       (lo >> 1).contiguous()), {"M": M}))
+        wkeys = []
+        for name, fn, walk, extra in walks:
+            for size, n in (("phase2", B), ("chunk", min(B, SMALL_CHUNK))):
+                part = [x[:n].contiguous() for x in walk]
+                calls.append((lambda a=part, f=fn, k=extra: f(*a, **k),
+                              KERNEL_NAMES[name]))
+                wkeys.append((name, size, n))
         ms = dp_kernel_ms(calls)
+        wline = []
+        for (name, size, n), t in zip(wkeys, ms[n_dp:]):
+            walk_sums[(name, size)] += t
+            wline.append(f"{name[10:]} walker B={n}: {t:.4f}")
+        ms = ms[:n_dp]
         line = []
         for (name, size, n), real, fixed in zip(keys, ms[0::2], ms[1::2]):
             sums[(name, size)][0] += real
             sums[(name, size)][1] += fixed
             line.append(f"{name[10:]} B={n}: {real:.4f} / {fixed:.4f} "
                         f"/ {fixed / real:.3f}")
-        log(f"{M:>5} {W:>4}  " + "; ".join(line))
+        log(f"{M:>5} {W:>4}  " + "; ".join(line + wline))
     for (name, size), (real, fixed) in sums.items():
         log(f"phase 2d sum, {name} {size}: {real:.4f} ms, fixed "
             f"{fixed:.4f} ms = {fixed / real:.4f} of the kernel's time")
-    return sums
+    for (name, size), t in walk_sums.items():
+        log(f"phase 2d sum, {name} {size}: {t:.4f} ms of kernel device "
+            f"time")
+    return sums, walk_sums
 
 
 KERNEL_MODULES = ("banded_sw_row", "traceback_row", "banded_sw_adiag",
@@ -720,7 +899,7 @@ def phase_e2e(dev, card, world):
     log(f"kernel launches in the end-to-end run: {launches}")
     if min(launches.values()) <= 0:
         fail(f"a kernel of the main path was never launched: {launches}")
-    e2e_ms, wrap = kernel_device_ms(lambda: list(align_reads(
+    e2e_ms, wrap, order = kernel_device_ms(lambda: list(align_reads(
         ref, idx, reads, cfg, batch_size=256, aligner=aligner)))
     log(f"device ms per kernel in one more (profiled) config-1 pass: "
         f"{e2e_ms}")
@@ -739,6 +918,15 @@ def phase_e2e(dev, card, world):
             f"{total - inside:.4f} (ms x calls, name: "
             + "; ".join(f"{ms:.4f} x{c} {name}" for ms, c, name in others)
             + ")")
+    enc = sorted(((ms, c, name[:60]) for name, (ms, c)
+                  in wrap["compact_encode"].items()), reverse=True)
+    enc_ms = sum(ms for ms, _, _ in enc)
+    log(f"wire.compact_encode (torch; after every row walk) in that pass: "
+        f"{enc_ms:.4f} device ms over {order.count('compact_encode')} "
+        f"calls, beside the row walker's {e2e_ms['traceback_row']:.4f} "
+        f"(largest, ms x launches: "
+        + "; ".join(f"{ms:.4f} x{c} {name}" for ms, c, name in enc[:4])
+        + ")")
 
     st = evaluate(out, reads)
     log(f"accuracy: part_recall={st.part_recall:.4f} "
@@ -779,6 +967,7 @@ def phase_e2e(dev, card, world):
         f"records) is byte-identical on the card with globals on the row "
         f"pair and on the antidiagonal pair ({adiag[True]} adiag DP "
         f"launches)")
+    e2e_ms["compact_encode"] = enc_ms
     return launches, rps, e2e_ms
 
 
@@ -1122,7 +1311,131 @@ def phase_profile(dev, card, runs: int = 3):
     return out
 
 
+# (word rows, lanes) of the walkers' shared-memory tiles tried by --tiles
+TILE_VARIANTS = {
+    "ADIAG": ((32, 32), (16, 32), (8, 32), (16, 64), (4, 32)),
+    "ROW": ((32, 32), (16, 32), (8, 32), (8, 64), (16, 64)),
+}
+
+
+def phase_tiles(dev, scores):
+    """--tiles: both walkers' times by tile shape. The direction words
+    come once from the DP kernels on the phase-2 recipes; then, per
+    variant, _build's flags and library path are pointed at that shape,
+    the library is rebuilt and loaded, and each walker is timed (CUDA
+    events around 3 calls, the least of 3 such means) at every bucket
+    on all B = CHUNK_BY_M instances and on the first SMALL_CHUNK of
+    them, and its share of blocking reloads among the tiles it staged
+    is read from the kernel's debug output. The row walker is also
+    timed on chunks whose every instance carries a W/2 - 16 deletion.
+    The first variant must be the committed WALK_TILES; every other
+    variant's outputs must equal its."""
+    import torch
+
+    from lamsa_tpu_torch import _build
+    from lamsa_tpu_torch.ops.banded_sw_adiag import banded_sw_adiag
+    from lamsa_tpu_torch.ops.banded_sw_row import banded_sw_row
+    from lamsa_tpu_torch.ops.testing import (make_batch,
+                                             make_deletion_batch,
+                                             make_globals,
+                                             walker_counts_cuda)
+    from lamsa_tpu_torch.ops.traceback_adiag import traceback_adiag
+    from lamsa_tpu_torch.ops.traceback_row import traceback_row
+    from lamsa_tpu_torch.pipeline.extend import BUCKETS, CHUNK_BY_M
+
+    kw = dict(match=scores.match, mismatch=scores.mismatch,
+              gapo=scores.gap_open, gape=scores.gap_ext)
+    rng = np.random.default_rng(20260817)
+
+    def least_ms(fn):
+        return min(cuda_ms(fn, 3) for _ in range(3))
+
+    walks = []      # per bucket: the row walk's and the adiag walk's inputs
+    for M, W in BUCKETS:
+        B = CHUNK_BY_M[(M, W)]
+        q, t_win, m, n, lo = [torch.from_numpy(a).to(dev)
+                              for a in make_batch(rng, B, M, W)]
+        row = banded_sw_row(q, t_win, m, n, lo, torch.zeros_like(m), **kw)
+        rwalk = (row["dirs32"], lo, m.clone(), (n - m - lo).contiguous())
+        q, t_win, m, n, lo = [torch.from_numpy(a).to(dev) for a in
+                              make_globals(rng, B, M, W, stress=True)]
+        ad = banded_sw_adiag(q, t_win, m, n, lo, **kw)
+        awalk = (ad["dirs32a"], m, (n - m - lo).contiguous(),
+                 (lo >> 1).contiguous())
+        q, t_win, m, n, lo = [torch.from_numpy(a).to(dev) for a in
+                              make_deletion_batch(rng, B, M, W)]
+        row = banded_sw_row(q, t_win, m, n, lo, torch.zeros_like(m), **kw)
+        dwalk = (row["dirs32"], lo, m.clone(), (n - m - lo).contiguous())
+        walks.append((M, rwalk, awalk, dwalk))
+    torch.cuda.synchronize()
+
+    def head(walk):
+        return tuple(x[:SMALL_CHUNK].contiguous() for x in walk)
+
+    base_flags = tuple(f for f in _build.NVCC_FLAGS
+                       if "_TILE_" not in f)
+    first = {k: (_build.WALK_TILES[f"{k}_TILE_ROWS"],
+                 _build.WALK_TILES[f"{k}_TILE_LANES"])
+             for k in TILE_VARIANTS}
+    if any(v[0] != first[k] for k, v in TILE_VARIANTS.items()):
+        fail(f"the first tile variant is not the committed one ({first})")
+    lib_dir, want, out = os.path.dirname(_build.LIB_PATH), None, []
+    for v in range(len(TILE_VARIANTS["ROW"])):
+        shape = {k: TILE_VARIANTS[k][v] for k in TILE_VARIANTS}
+        for k, (rows, lanes) in shape.items():
+            _build.WALK_TILES.update({f"{k}_TILE_ROWS": rows,
+                                      f"{k}_TILE_LANES": lanes,
+                                      f"{k}_TILE_LEFT": lanes // 2 - 2})
+        _build.NVCC_FLAGS = base_flags + tuple(
+            f"-D{k}={x}" for k, x in _build.WALK_TILES.items())
+        _build.LIB_PATH = os.path.join(lib_dir, f"libkernels_tiles{v}.so")
+        _build._lib = None
+        _build.lib()
+        got, ms = [], {"ROW": [], "ADIAG": [], "ROW_chunk": [],
+                       "ADIAG_chunk": [], "ROW_deletions": []}
+        staged = {"ROW": torch.zeros(2, dtype=torch.int64),
+                  "ADIAG": torch.zeros(2, dtype=torch.int64)}
+        for M, rwalk, awalk, dwalk in walks:
+            got.append((traceback_row(*rwalk), traceback_adiag(*awalk, M=M)))
+            ms["ROW_deletions"].append(
+                least_ms(lambda: traceback_row(*dwalk)))
+            staged["ROW"] += walker_counts_cuda(
+                "row", *rwalk)[1].sum(dim=0).cpu()
+            staged["ADIAG"] += walker_counts_cuda(
+                "adiag", *awalk, M=M)[1].sum(dim=0).cpu()
+            ms["ROW"].append(least_ms(lambda: traceback_row(*rwalk)))
+            ms["ADIAG"].append(
+                least_ms(lambda: traceback_adiag(*awalk, M=M)))
+            rh, ah = head(rwalk), head(awalk)
+            ms["ROW_chunk"].append(least_ms(lambda: traceback_row(*rh)))
+            ms["ADIAG_chunk"].append(
+                least_ms(lambda: traceback_adiag(*ah, M=M)))
+        if want is None:
+            want = got
+        for (M, *_), g, w_ in zip(walks, got, want):
+            if not all(torch.equal(a, b) for gs, ws in zip(g, w_)
+                       for a, b in zip(gs, ws)):
+                fail(f"tile variant {shape} changed a walker's output at "
+                     f"M={M}")
+        for k in ("ROW", "ADIAG"):
+            tiles, reloads = staged[k].tolist()
+            ms[k + "_tiles_reloads"] = [tiles, reloads]
+            log(f"{k} tile {shape[k][0]} x {shape[k][1]}: "
+                f"sum {sum(ms[k]):.3f} ms, 128-instance chunks "
+                f"{sum(ms[k + '_chunk']):.3f} ms, blocking reloads "
+                f"{reloads} of {tiles} tiles; per bucket "
+                + " ".join(f"{x:.3f}" for x in ms[k]) + " | "
+                + " ".join(f"{x:.3f}" for x in ms[k + "_chunk"]))
+        log(f"ROW tile {shape['ROW'][0]} x {shape['ROW'][1]} on chunks whose "
+            f"every instance scans a W/2 - 16 deletion: sum "
+            f"{sum(ms['ROW_deletions']):.3f} ms; per bucket "
+            + " ".join(f"{x:.3f}" for x in ms["ROW_deletions"]))
+        out.append({"shape": shape, "ms": ms})
+    return out
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     import torch
@@ -1159,11 +1472,19 @@ def main() -> int:
         return 0
     from lamsa_tpu_torch.worlds import build_world
     scores = ScoreParams(match=1, mismatch=3, gap_open=2, gap_ext=1)
+    if sys.argv[1:] == ["--tiles"]:
+        print(json.dumps({"card": card, "tiles": phase_tiles(dev, scores)}),
+              flush=True)
+        return 0
     rng = np.random.default_rng(20260817)
     err, tot, bnd = phase_kernels(dev, scores, rng)
     err_a, tot_a, bnd_a = phase_adiag(dev, scores, rng)
     err_e = phase_edges(dev, scores, rng)
-    phase_fixed(dev, scores, np.random.default_rng(20260818))
+    fixed_sums, walk_sums = phase_fixed(dev, scores,
+                                        np.random.default_rng(20260818))
+    kernel_ms = {n: fixed_sums[(n, "phase2")][0] for n in DP_WRAPPERS}
+    kernel_ms.update({n: walk_sums[(n, "phase2")]
+                      for n in ("traceback_row", "traceback_adiag")})
     t0 = time.perf_counter()
     world = build_world()
     log(f"config-1 world built in {time.perf_counter() - t0:.1f} s")
@@ -1194,12 +1515,16 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": max(e1, e2),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
             "bound_by": "operations" if by_ops else "bytes",
-            "library_ms": None, "e2e_ms": e2e_ms[name]})
+            "library_ms": None, "e2e_ms": e2e_ms[name],
+            "kernel_ms": kernel_ms[name]})
     log("kernels: ms / plain_ms / bound_ms = one call at each of the 9 "
         "buckets (B = CHUNK_BY_M, phase 2), summed; launches = the "
         "config-1 run of phase 3; e2e_ms = the kernel's device time in "
-        "one profiled config-1 pass; library_ms null: no single PyTorch "
+        "one profiled config-1 pass; kernel_ms = its device time on the "
+        "phase-2 work without the wrapper's launch and allocations "
+        "(phase 2d, 9 buckets summed); library_ms null: no single PyTorch "
         "call computes a banded DP with direction bits or its walk")
+    log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,10 @@ seconds), written to ``build/lamsa_tpu_torch/`` under the repository
 root on first use and loaded with ctypes. Wrappers pass raw device
 pointers and the current CUDA stream as integers; every C entry returns
 ``cudaGetLastError()`` and the wrapper raises if it is not 0.
+
+``WALK_TILES`` states the tile schedule of the two traceback walkers
+once: the sources get it as ``-D`` flags, and the numpy mirror of that
+schedule in ``ops/testing.py`` reads the same dictionary.
 """
 
 from __future__ import annotations
@@ -23,8 +27,17 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "lamsa_tpu_torch")
 LIB_PATH = os.path.join(BUILD_DIR, "libkernels.so")
 LOG_PATH = os.path.join(BUILD_DIR, "build.log")
+# Shared-memory tiles of the walkers (csrc/traceback_adiag.cu,
+# csrc/traceback_row.cu): word rows (4 antidiagonals or DP rows each) by
+# lanes (int32 words), and how many lanes of a newly staged tile lie left
+# of the cursor (the origin is rounded down to 4 lanes = 16 bytes).
+WALK_TILES = {
+    "ADIAG_TILE_ROWS": 32, "ADIAG_TILE_LANES": 32, "ADIAG_TILE_LEFT": 14,
+    "ROW_TILE_ROWS": 32, "ROW_TILE_LANES": 32, "ROW_TILE_LEFT": 14,
+}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              *(f"-D{k}={v}" for k, v in WALK_TILES.items()))
 
 _lock = threading.Lock()
 _lib = None
@@ -36,14 +49,15 @@ _SIGNATURES = {
     # q, t_win, m_len, n_len, lo, zdrop, order, next, dirs32, h_last,
     # best, B, M, W, match, mismatch, gapo, gape, stream
     "lamsa_banded_sw_row": (_P,) * 11 + (_I,) * 7 + (_P,),
-    # dirs32, lo, start_i, start_d, steps, term, B, M, W, stream
-    "lamsa_traceback_row": (_P,) * 6 + (_I,) * 3 + (_P,),
+    # dirs32, lo, start_i, start_d, steps, term, dbg (or null), B, M, W,
+    # stream
+    "lamsa_traceback_row": (_P,) * 7 + (_I,) * 3 + (_P,),
     # q, t_win, m_len, n_len, lo, order, next, dirs32a, h_last,
     # B, M, W, match, mismatch, gapo, gape, stream
     "lamsa_banded_sw_adiag": (_P,) * 9 + (_I,) * 7 + (_P,),
-    # dirs32a, si, sd, hl, opbits, events, term0, n_ev,
+    # dirs32a, si, sd, hl, opbits, events, term0, n_ev, dbg (or null),
     # B, A4, V, M, EW, wide, e_slots, stream
-    "lamsa_traceback_adiag": (_P,) * 8 + (_I,) * 7 + (_P,),
+    "lamsa_traceback_adiag": (_P,) * 9 + (_I,) * 7 + (_P,),
 }
 
 
@@ -59,12 +73,15 @@ def _nvcc() -> str:
 
 def build() -> str:
     """Compile csrc/*.cu into LIB_PATH unless it is newer than every
-    source; returns the library path. One nvcc per source runs in
-    parallel, then one link. The compilers' resource reports (-Xptxas
-    -v: registers, shared memory, spills) go to LOG_PATH."""
+    source, header and this file (the -D flags); returns the library
+    path. One nvcc per source runs in parallel, then one link. The
+    compilers' resource reports (-Xptxas -v: registers, shared memory,
+    spills) go to LOG_PATH."""
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    inputs = sources + glob.glob(os.path.join(CSRC, "*.cuh")) \
+        + [os.path.abspath(__file__)]
     if os.path.exists(LIB_PATH) and os.path.getmtime(
-            LIB_PATH) >= max(os.path.getmtime(s) for s in sources):
+            LIB_PATH) >= max(os.path.getmtime(s) for s in inputs):
         return LIB_PATH
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -22,6 +22,22 @@ kernel tests and ``chip_smoke.py``.
   make_global_chunk packed read / reference words and a descriptor wire
                     of make_globals instances on both read strands
   adiag_live        which dirs32a words lie below each instance's m + n
+  make_indel_batch  global instances with one long deletion or one long
+                    insertion run each, for the walkers' tile edges
+  random_dirs       direction words of random nibbles: walks with long D
+                    and I runs that leave the band
+  traceback_adiag_tiled, traceback_row_tiled
+                    numpy mirrors of the tile schedule of the two CUDA
+                    walkers (csrc/traceback_adiag.cu, csrc/traceback_row.cu;
+                    constants from _build.WALK_TILES): the same tiles staged
+                    by the same rules, every byte read from the staged tile
+                    or TileReadError raised, and the counts of tiles staged
+                    and of blocking reloads
+  walker_edge_walks walks over gaps, mixed instances and random words that
+                    cross the walkers' tile edges and leave the band
+  walker_counts_cuda
+                    the CUDA walkers launched with their debug output: the
+                    kernel's own counts of tiles staged and blocking reloads
   port_world        this package's own reference, index and config for
                     another package's (the tests that compare the port
                     with the JAX package build both sides from the same
@@ -35,8 +51,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from lamsa_tpu_torch.ops.wire import (_LO_BIAS, global_lo, pack_codes_words,
-                                      pack_desc)
+from lamsa_tpu_torch import _build
+from lamsa_tpu_torch.ops.wire import (_LO_BIAS, compact_E, compact_wide,
+                                      compact_words, global_lo,
+                                      pack_codes_words, pack_desc)
 
 T_SENTINEL = 5                  # t_win code outside the target
 
@@ -195,6 +213,46 @@ def edge_batch(rng, B: int, M: int, W: int, adiag: bool = False):
     return tuple(np.concatenate(x) for x in zip(*parts))
 
 
+def make_indel_batch(rng, B: int, M: int, W: int, dels: int, ins: int):
+    """Global instances (even lo) with one long gap each: the query of
+    an even instance lacks one run of `dels` target bases, the query of
+    an odd instance carries one run of `ins` bases the target lacks
+    (both in one instance, the DP would pair the two runs off as short
+    gaps and matches). (q, t_win, m, n, lo) int32 arrays; needs
+    max(dels, ins) + 1 <= W - 2 and M >= ins + 32."""
+    q = np.zeros((B, M), np.int32)
+    t_win = np.zeros((B, M + W), np.int32)
+    m_len = np.zeros(B, np.int32)
+    n_len = np.zeros(B, np.int32)
+    lo = np.zeros(B, np.int32)
+    for b in range(B):
+        gap_t, gap_q = (dels, 0) if b % 2 == 0 else (0, ins)
+        m = int(rng.integers(max(gap_q + 24, M // 2), M - 2))
+        rest = m - gap_q                        # bases on both sides
+        h0 = int(rng.integers(8, rest - 7))
+        t = rng.integers(0, 4, rest + gap_t).astype(np.int32)
+        qq = np.concatenate([t[:h0], rng.integers(0, 4, gap_q),
+                             t[h0 + gap_t:]]).astype(np.int32)
+        m_len[b], n_len[b] = len(qq), len(t)
+        lo[b] = _even_lo(len(qq), len(t), W)
+        q[b, :len(qq)] = qq
+        t_win[b] = make_t_window(t, int(lo[b]), M, W)
+    return q, t_win, m_len, n_len, lo
+
+
+def random_dirs(rng, B: int, R4: int, L: int):
+    """int32[B, R4, L] direction words of random nibbles (source M / D /
+    I / stop with weights 0.658 / 0.17 / 0.17 / 0.002, each extension
+    bit set with probability 0.9): no DP wrote them, so a walk over them
+    takes long D and I runs, leaves the band on either side and, on the
+    antidiagonal layout, may stop early."""
+    src = rng.choice(4, size=(B, R4, L, 4), p=[0.658, 0.17, 0.17, 0.002])
+    ext = (rng.random((B, R4, L, 4, 2)) < 0.9).astype(np.int64)
+    nib = src | (ext[..., 0] << 2) | (ext[..., 1] << 3)
+    words = (nib << (8 * np.arange(4))).sum(axis=-1)
+    return words.astype(np.uint32).view(np.int32)
+
+
 def _revcomp(codes):
     return np.where(codes < 4, 3 - codes, codes)[::-1].astype(np.uint8)
 
@@ -280,3 +338,436 @@ def port_world(ref, index=None, config=None):
         values["scores"] = ScoreParams(**values["scores"])
         out.append(AlignConfig(**values))
     return tuple(out)
+
+
+# ------------------------------ the CUDA walkers' tile schedule, mirrored
+
+class TileReadError(AssertionError):
+    """A mirrored walker read a direction byte outside its staged tile."""
+
+
+class _TileBuf:
+    """One shared-memory tile buffer of a mirrored walker: the words of
+    tile t (word rows [t * TR, (t + 1) * TR)) at lane origin l0 that lie
+    inside the instance's array; no other word can be read."""
+
+    def __init__(self, words, TR, TL):
+        self.words, self.TR, self.TL = words, TR, TL
+        self.t = self.l0 = None
+
+    def stage(self, t, l0):
+        if l0 % 4:
+            raise TileReadError(f"tile origin {l0} is not 16-byte aligned")
+        R, L = self.words.shape
+        self.t, self.l0 = t, l0
+        self.ok = np.zeros((self.TR, self.TL), bool)
+        self.data = np.zeros((self.TR, self.TL), np.int64)
+        if t < 0:
+            return
+        r0, r1 = t * self.TR, min((t + 1) * self.TR, R)
+        g0, g1 = max(l0, 0), min(l0 + self.TL, L)
+        if r1 > r0 and g1 > g0:
+            self.ok[:r1 - r0, g0 - l0:g1 - l0] = True
+            self.data[:r1 - r0, g0 - l0:g1 - l0] = self.words[r0:r1, g0:g1]
+
+    def byte(self, wr, lane, k):
+        rr, x = wr - self.t * self.TR, lane - self.l0
+        if not (0 <= rr < self.TR and 0 <= x < self.TL and self.ok[rr, x]):
+            raise TileReadError(f"read of word ({wr}, {lane}) outside tile "
+                                f"{self.t} at origin {self.l0}")
+        return (int(self.data[rr, x]) >> (8 * k)) & 0xFF
+
+
+def _origin(lane, left):
+    return (lane - left) & ~3
+
+
+def _walk_adiag_tiled(words, si, sd, hl, M):
+    """One instance of csrc/traceback_adiag.cu, statement for statement:
+    (opbits, events, term0, n_ev, tiles staged, blocking reloads)."""
+    TR, TL, LEFT = (_build.WALK_TILES[f"ADIAG_TILE_{k}"]
+                    for k in ("ROWS", "LANES", "LEFT"))
+    A4, V = words.shape
+    A, NW, EW = 4 * A4, M // 32, compact_words(M)
+    wide, e_slots = compact_wide(M), compact_E(M)
+    CMAX, RSH = (8191, 13) if wide else (30, 5)
+    op = np.zeros(NW, np.int64)
+    ev = np.zeros(EW, np.int64)
+    sj = si + 2 * hl + sd
+    sa = si + sj
+    i, l = si, (sd - (sa & 1)) >> 1
+    mode = pend = evc = ovf = 0
+    term0 = sj if si == 0 else 0
+    acur = 0 if si == 0 else sa
+    evw, opk, opw = 0, -1, 0        # words gathered before they are stored
+    n_stage = n_block = 0
+
+    def emit_event(row, cnt):
+        nonlocal evw, evc, ovf
+        val = ((row - 1) << RSH) | min(cnt, CMAX)
+        if wide:
+            if evc < EW:
+                ev[evc] = val
+        else:
+            evw = (evw | (val << 16)) if evc & 1 else val
+            if evc >> 1 < EW:
+                ev[evc >> 1] = evw
+        if cnt > CMAX or evc >= e_slots:
+            ovf = 1
+        evc += 1
+
+    if 1 <= acur <= A and i >= 1:
+        t = ((acur - 1) >> 2) // TR
+        bufs = [_TileBuf(words, TR, TL), _TileBuf(words, TR, TL)]
+        cur, l_in = 0, l
+        l0c = l0n = _origin(l, LEFT)
+        bufs[0].stage(t, l0c)
+        bufs[1].stage(t - 1, l0n)
+        n_stage += 1 + (t > 0)
+        while True:
+            tb = bufs[cur]
+            a_lo = 4 * t * TR + 1
+            while True:
+                if not (acur >= 1 and i >= 1):
+                    reason = 0
+                    break
+                if acur < a_lo:
+                    reason = 1
+                    break
+                a = acur
+                in_band = 0 <= l < V
+                if in_band and not 0 <= l - l0c < TL:
+                    reason = 2
+                    break
+                if mode == 0:
+                    # up to 32 steps at once: lane k looks at
+                    # antidiagonal a - 2k
+                    run = 0
+                    while run < 32 and a - 2 * run >= a_lo and (
+                            not in_band or tb.byte(
+                                (a - 2 * run - 1) >> 2, l,
+                                (a - 2 * run - 1) & 3) & 3 == 0):
+                        run += 1
+                    run = min(run, i - 1)
+                    if run > 0:
+                        if pend > 0:
+                            emit_event(i, pend)
+                            pend = 0
+                        i -= run
+                        acur -= 2 * run
+                        if run == 32 or acur < a_lo:
+                            continue
+                        a = acur        # the serial step follows at once
+                nib = tb.byte((a - 1) >> 2, l, (a - 1) & 3) & 0xF \
+                    if in_band else 0
+                src, eext, fext = nib & 3, (nib >> 2) & 1, (nib >> 3) & 1
+                isE = mode == 1 or (mode == 0 and src == 1)
+                isF = mode == 2 or (mode == 0 and src == 2)
+                isM = mode == 0 and src == 0
+                if not (isE or isF or isM):
+                    reason = 0
+                    break
+                commit = isM or isF
+                widx = (i - 1) >> 5
+                if isF and widx < NW:
+                    if widx != opk:
+                        if opk >= 0:
+                            op[opk] = opw
+                        opk, opw = widx, 0
+                    opw |= 1 << ((i - 1) & 31)
+                if commit and pend > 0:
+                    emit_event(i, pend)
+                pend = pend + 1 if isE else 0
+                if a & 1 == 0:
+                    l -= int(isE)
+                else:
+                    l += int(isF)
+                mode = (1 if eext else 0) if isE else \
+                    ((2 if fext else 0) if isF else 0)
+                if commit:
+                    i -= 1
+                a2 = a - (2 if isM else 1)
+                if commit and i == 0:
+                    term0, acur = a2, 0
+                else:
+                    acur = a2
+            if reason == 0:
+                break
+            if reason == 1:
+                t -= 1
+                cur ^= 1
+                drift, l_in = l - l_in, l
+                l0c = l0n
+                if 0 <= l < V and not l0c <= l < l0c + TL:
+                    l0c = _origin(l, LEFT)
+                    bufs[cur].stage(t, l0c)
+                    n_stage += 1
+                    n_block += 1
+                l0n = _origin(l + drift, LEFT)
+                bufs[cur ^ 1].stage(t - 1, l0n)
+                n_stage += t > 0
+            else:
+                l0c = _origin(l, LEFT)
+                bufs[cur].stage(t, l0c)
+                n_stage += 1
+                n_block += 1
+    if opk >= 0:
+        op[opk] = opw
+    return op, ev, term0, (0xFFFF if ovf else evc), n_stage, n_block
+
+
+def traceback_adiag_tiled(dirs32a, si, sd, hl, *, M):
+    """traceback_adiag by the CUDA kernel's tile schedule, in numpy on
+    the host: (opbits, events, term0, n_ev) as traceback_adiag returns
+    them, and counts int32[B, 2] = tiles staged, blocking reloads."""
+    words = dirs32a.cpu().numpy().view(np.uint32)
+    outs = [_walk_adiag_tiled(words[b], int(si[b]), int(sd[b]), int(hl[b]), M)
+            for b in range(words.shape[0])]
+
+    def i32(k):
+        return torch.from_numpy(np.array([o[k] for o in outs], np.int64)
+                                .astype(np.uint32).view(np.int32))
+
+    counts = torch.stack([i32(4), i32(5)], dim=1)
+    return (i32(0), i32(1), i32(2), i32(3)), counts
+
+
+def _walk_row_tiled(words, lo, si, sd):
+    """One instance of csrc/traceback_row.cu, statement for statement:
+    (steps, term, tiles staged, blocking reloads)."""
+    TR, TL, LEFT = (_build.WALK_TILES[f"ROW_TILE_{k}"]
+                    for k in ("ROWS", "LANES", "LEFT"))
+    M4, W = words.shape
+    M = 4 * M4
+    INACT = 2 << 16
+    st = np.full(M, -1, np.int64)               # every word must be stored
+    first = (((si - 1) >> 5) + 1 if si >= 1 else 0) * 32
+    st[first:] = INACT
+    mystep = [INACT] * 32
+    d = sd
+    n_stage = n_block = 0
+    if si >= 1:
+        r, in_f, scanning, y, count = si, 0, False, 0, 0
+        t = ((r - 1) >> 2) // TR
+        bufs = [_TileBuf(words, TR, TL), _TileBuf(words, TR, TL)]
+        cur, d_in = 0, d
+        l0c = l0n = _origin(d, LEFT)
+        bufs[0].stage(t, l0c)
+        bufs[1].stage(t - 1, l0n)
+        n_stage += 1 + (t > 0)
+        while True:
+            tb = bufs[cur]
+            r_lo = 4 * t * TR + 1
+            while True:
+                if r < 1:
+                    reason = 0
+                    break
+                if r < r_lo:
+                    reason = 1
+                    break
+                wr, k4 = (r - 1) >> 2, (r - 1) & 3
+                bx, x, up_known = 0, d, False
+                if not scanning:
+                    in_band = 0 <= d < W
+                    if in_band and not 0 <= d - l0c < TL:
+                        reason = 2
+                        break
+                    if not in_f:
+                        # 32 rows at once: lane k looks at row r - k
+                        p = (r - 1) & 31
+                        run = 0
+                        while run < 32 and r - run >= r_lo and (
+                                not in_band or tb.byte(
+                                    (r - run - 1) >> 2, d,
+                                    (r - run - 1) & 3) & 3 == 0):
+                            run += 1
+                        run = min(run, p + 1)
+                        if run > 0:
+                            for j in range(p - run + 1, p + 1):
+                                mystep[j] = 0
+                            r -= run
+                            if run == p + 1:
+                                n = min(32, M - r)
+                                st[r:r + n] = mystep[:n]
+                                mystep = [INACT] * 32
+                                continue
+                            if r < r_lo:
+                                continue
+                            # the serial row follows at once
+                            wr, k4 = (r - 1) >> 2, (r - 1) & 3
+                    bd = tb.byte(wr, d, k4) if in_band else 0
+                    if in_f:
+                        op, newlane, newf = 1, d + 1, (bd >> 3) & 1
+                        count, up_known = 0, True
+                    else:
+                        count = int(bd & 3 == 1)
+                        if count:
+                            scanning, y = True, d - 1
+                        else:
+                            bx = bd & 0xF
+                if scanning:
+                    miss = False
+                    while y >= 0:
+                        xy = y - l0c
+                        if xy < 0 or xy + 1 >= TL:
+                            miss = True
+                            break
+                        is_e = tb.byte(wr, y, k4) & 3 == 1
+                        e_up = (tb.byte(wr, y + 1, k4) >> 2) & 1
+                        if not (is_e or e_up):
+                            break
+                        count += 1
+                        y -= 1
+                    if miss:
+                        reason = 3
+                        break
+                    scanning = False
+                    x = y
+                    bx = tb.byte(wr, x, k4) & 0xF if x >= 0 else 0
+                if not up_known:
+                    if bx & 3 == 0:
+                        op, newlane, newf = 0, x, 0
+                    else:
+                        op, newlane, newf = 1, x + 1, (bx >> 3) & 1
+                k = r - 1
+                mystep[k & 31] = count | (op << 16)
+                if k & 31 == 0:
+                    n = min(32, M - k)
+                    st[k:k + n] = mystep[:n]
+                    mystep = [INACT] * 32
+                d, in_f = newlane, newf
+                r -= 1
+            if reason == 0:
+                break
+            if reason == 1:
+                t -= 1
+                cur ^= 1
+                drift, d_in = d - d_in, d
+                l0c = l0n
+                if 0 <= d < W and not l0c <= d < l0c + TL:
+                    l0c = _origin(d, LEFT)
+                    bufs[cur].stage(t, l0c)
+                    n_stage += 1
+                    n_block += 1
+                l0n = _origin(d + drift, LEFT)
+                bufs[cur ^ 1].stage(t - 1, l0n)
+                n_stage += t > 0
+            else:
+                l0c = _origin(d, LEFT) if reason == 2 \
+                    else (y + 2 - TL + 3) & ~3
+                bufs[cur].stage(t, l0c)
+                n_stage += 1
+                n_block += 1
+    if (st < 0).any():
+        raise TileReadError("a step word was never stored")
+    term = np.zeros(8, np.int64)
+    term[0] = lo + d
+    term[1] = d if si >= 1 else 0
+    return st, term, n_stage, n_block
+
+
+def traceback_row_tiled(dirs32, lo, start_i, start_d):
+    """traceback_row by the CUDA kernel's tile schedule, in numpy on the
+    host: (steps, term) as traceback_row returns them, and counts
+    int32[B, 2] = tiles staged, blocking reloads."""
+    words = dirs32.cpu().numpy().view(np.uint32)
+    outs = [_walk_row_tiled(words[b], int(lo[b]), int(start_i[b]),
+                            int(start_d[b])) for b in range(words.shape[0])]
+
+    def i32(k):
+        return torch.from_numpy(np.array([o[k] for o in outs], np.int64)
+                                .astype(np.int32))
+
+    return (i32(0), i32(1)), torch.stack([i32(2), i32(3)], dim=1)
+
+
+def walker_counts_cuda(kind, dirs, *starts, M=None):
+    """Launch a CUDA walker through its C entry with the debug output
+    (not through its wrapper, so no launch is counted). kind "row":
+    starts = (lo, start_i, start_d); kind "adiag": starts = (si, sd, hl)
+    and M. Returns (the wrapper's outputs, counts int32[B, 2] = tiles
+    staged, blocking reloads, as the kernel counted them)."""
+    dev = dirs.device
+    B = dirs.shape[0]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    counts = torch.zeros((B, 2), dtype=torch.int32, device=dev)
+    ptrs = [x.data_ptr() for x in (dirs, *starts)]
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+
+    if kind == "row":
+        _, M4, W = dirs.shape
+        outs = (empty(B, 4 * M4), empty(B, 8))
+        rc = _build.lib().lamsa_traceback_row(
+            *ptrs, *(o.data_ptr() for o in outs), counts.data_ptr(), B,
+            4 * M4, W, stream)
+    else:
+        _, A4, V = dirs.shape
+        EW = compact_words(M)
+        outs = (empty(B, M // 32), empty(B, EW), empty(B), empty(B))
+        rc = _build.lib().lamsa_traceback_adiag(
+            *ptrs, *(o.data_ptr() for o in outs), counts.data_ptr(), B, A4,
+            V, M, EW, int(compact_wide(M)), compact_E(M), stream)
+    _build.check(rc, f"lamsa_traceback_{kind}")
+    return outs, counts
+
+
+def walker_edge_walks(rng, B: int, M: int, W: int, dev,
+                      kinds=("row", "adiag"), **scores):
+    """Walks built to cross the walkers' tile edges, on device `dev`
+    (the DP wrappers make the direction words: the kernels on a card,
+    the plain versions on the CPU). Yields (name, kind, walk): kind
+    "row" with walk = (dirs32, lo, start_i, start_d), or "adiag" with
+    walk = (dirs32a, si, sd, hl); only the kinds asked for. Per kind:
+      gap     make_indel_batch: a deletion of W/2 + 8 bases (past the
+              row walker's lane window) or an insertion of 40 (past 32
+              rows), global walks from (m, n);
+      edge    edge_batch: mixed instances and one W/2 - 16 deletion;
+      random  random_dirs: long D and I runs, cursors that leave the
+              band on both sides, starts outside the band, at row 0 and
+              (adiag) past the padded steps."""
+    from lamsa_tpu_torch.ops.banded_sw_adiag import banded_sw_adiag
+    from lamsa_tpu_torch.ops.banded_sw_row import banded_sw_row
+    from lamsa_tpu_torch.ops.wire import a_pad
+
+    def on_dev(arrs):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in arrs]
+
+    for name, batch in (
+            ("gap", make_indel_batch(rng, B, M, W, W // 2 + 8, 40)),
+            ("edge", edge_batch(rng, B, M, W, adiag=True))):
+        q, t_win, m, n, lo = on_dev(batch)
+        sd = (n - m - lo).contiguous()
+        if "row" in kinds:
+            row = banded_sw_row(q, t_win, m, n, lo, torch.zeros_like(m),
+                                **scores)
+            yield name, "row", (row["dirs32"], lo, m.clone(), sd)
+        if "adiag" in kinds:
+            ad = banded_sw_adiag(q, t_win, m, n, lo, **scores)
+            yield name, "adiag", (ad["dirs32a"], m, sd,
+                                  (lo >> 1).contiguous())
+    i32 = np.int32
+    if "row" in kinds:
+        dirs, lo, si, sd = on_dev([
+            random_dirs(rng, B, M // 4, W),
+            rng.integers(-W, 0, B).astype(i32),
+            rng.integers(1, M + 1, B).astype(i32),
+            rng.integers(-8, W + 8, B).astype(i32)])
+        si[0] = M
+        if B > 1:
+            si[1] = 0
+        yield "random", "row", (dirs, lo, si, sd)
+    if "adiag" not in kinds:
+        return
+    dirs_a, si, sd, hl = on_dev([
+        random_dirs(rng, B, a_pad(M, W) // 4, W // 2),
+        rng.integers(1, M + 1, B).astype(i32),
+        rng.integers(-8, W + 8, B).astype(i32),
+        rng.integers(-W // 4, 1, B).astype(i32)])
+    si[0] = M
+    if B > 2:
+        si[1] = 0
+        hl[2], sd[2] = M, W                     # starts past the padding
+    yield "random", "adiag", (dirs_a, si, sd, hl)

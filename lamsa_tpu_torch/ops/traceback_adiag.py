@@ -19,7 +19,8 @@ made as each event is emitted; writes past the last word are dropped.
 ``wire.collect_group(..., topdown=True)`` decodes it.
 
 On a CUDA tensor ``traceback_adiag`` launches ``csrc/traceback_adiag.cu``
-(one thread per instance walking its own cursor); on a CPU tensor it
+(one warp per instance, walking its cursor through tiles of direction
+words staged in shared memory two at a time); on a CPU tensor it
 runs ``traceback_adiag_plain``, a lockstep torch sweep over descending
 antidiagonals, as the TPU kernel.
 """
@@ -73,7 +74,8 @@ def traceback_adiag(dirs32a, si, sd, hl, *, M):
     rc = _build.lib().lamsa_traceback_adiag(
         dirs32a.data_ptr(), si.data_ptr(), sd.data_ptr(), hl.data_ptr(),
         opbits.data_ptr(), events.data_ptr(), term0.data_ptr(),
-        n_ev.data_ptr(), B, A4, V, M, EW, int(compact_wide(M)), compact_E(M),
+        n_ev.data_ptr(), None, B, A4, V, M, EW, int(compact_wide(M)),
+        compact_E(M),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "lamsa_traceback_adiag")
     _count()

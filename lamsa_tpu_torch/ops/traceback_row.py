@@ -4,8 +4,9 @@
 ``lamsa_tpu.ops.traceback_pallas.traceback_pallas``: it walks every
 instance from (start_i, start_d) up to row 0 over ``dirs32`` and
 returns per-row step words and the terminal. On a CUDA tensor it
-launches ``csrc/traceback_row.cu`` (one thread per instance); on a CPU
-tensor it runs ``traceback_row_plain``, a lockstep torch walk that
+launches ``csrc/traceback_row.cu`` (one warp per instance, walking
+tiles of direction words staged in shared memory two at a time); on a
+CPU tensor it runs ``traceback_row_plain``, a lockstep torch walk that
 advances every instance one row per step, as the TPU kernel does.
 
 Encoding (traceback_pallas.py module docstring): steps[b, r-1] for DP
@@ -60,8 +61,8 @@ def traceback_row(dirs32, lo, start_i, start_d):
     term = torch.empty((B, 8), dtype=torch.int32, device=dev)
     rc = _build.lib().lamsa_traceback_row(
         dirs32.data_ptr(), lo.data_ptr(), start_i.data_ptr(),
-        start_d.data_ptr(), steps.data_ptr(), term.data_ptr(), B, M, W,
-        torch.cuda.current_stream(dev).cuda_stream)
+        start_d.data_ptr(), steps.data_ptr(), term.data_ptr(), None, B, M,
+        W, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "lamsa_traceback_row")
     _count()
     return steps, term

@@ -73,7 +73,8 @@ def test_banded_sw_row_kernel_matches_plain(dev, M, W):
     assert not torch.equal(bests[1], bests[2])
 
 
-@pytest.mark.parametrize("M,W", [(128, 128), (1024, 256)])
+@pytest.mark.parametrize("M,W", [(128, 128), (1024, 256), (5120, 256),
+                                 (128, 256)])
 def test_traceback_row_kernel_matches_plain(dev, M, W):
     from lamsa_tpu_torch.ops.banded_sw_row import banded_sw_row
     from lamsa_tpu_torch.ops import traceback_row as mod
@@ -158,6 +159,38 @@ def test_dp_kernels_small_chunks_and_thread_edges(dev, M, W, B):
                        torch.where(live, want["dirs32a"], 0))
     assert torch.equal(got["h_last"].clamp(min=-20000),
                        want["h_last"].clamp(min=-20000))
+
+
+@pytest.mark.parametrize("B", [1, 37])
+@pytest.mark.parametrize("M,W", [(5120, 256), (128, 128), (512, 128)])
+def test_walkers_tile_edges_and_reloads(dev, M, W, B):
+    """Both walkers on small chunks of walks that cross their tile
+    edges (a deletion past the lane window, an insertion run past 32
+    rows, random words whose walks leave the band): the kernel equals
+    the plain version, and its own counts of tiles staged and blocking
+    reloads equal the numpy mirror's of the same schedule, which takes
+    the reload path."""
+    from lamsa_tpu_torch.ops import testing as T
+    from lamsa_tpu_torch.ops.traceback_adiag import traceback_adiag_plain
+    from lamsa_tpu_torch.ops.traceback_row import traceback_row_plain
+    rng = np.random.default_rng(M + W + B)
+    reloads = {"row": 0, "adiag": 0}
+    for name, kind, walk in T.walker_edge_walks(rng, B, M, W, dev, **KW):
+        if kind == "row":
+            got, counts = T.walker_counts_cuda("row", *walk)
+            want = traceback_row_plain(*walk)
+            _, mirror = T.traceback_row_tiled(*(x.cpu() for x in walk))
+        else:
+            got, counts = T.walker_counts_cuda("adiag", *walk, M=M)
+            want = traceback_adiag_plain(*walk, M=M)
+            _, mirror = T.traceback_adiag_tiled(*(x.cpu() for x in walk),
+                                                M=M)
+        torch.cuda.synchronize()
+        for g, w_ in zip(got, want):
+            assert torch.equal(g, w_), (name, kind)
+        assert torch.equal(counts.cpu(), mirror), (name, kind)
+        reloads[kind] += int(counts[:, 1].sum())
+    assert min(reloads.values()) > 0
 
 
 ADIAG_SHAPES = [(128, 128), (256, 256), (512, 128), (5120, 256)]

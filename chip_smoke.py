@@ -75,7 +75,25 @@ Phases (any failure exits non-zero without a result line):
      SAM must equal the CPU path's (part recall printed only). Last, one
      retry-sized batch of seed_hits_fm with seg_quota and the 1-edit
      tracks on cuda against the same call on the CPU (all four outputs
-     equal; both times printed).
+     equal; both times printed);
+  6. several devices, shards and validation on the card:
+     a. the config-1 world (warm batch, then all 512 reads) through an
+        Aligner over the mesh ["cuda:0", "cuda:0"] (two entries of one
+        card, one index copy): SAM equal to phase 3's on every read,
+        each kernel launched (counts set to 0 just before), DP
+        instances per entry and reads/s printed; with more than one
+        card also ["cuda:0", "cuda:1"]; then phase 5's timed FM reads
+        and its 28%-error set over two entries, on phase 5's index, SAM
+        equal to phase 5's;
+     b. seed_hits_sharded over 2 and 4 entries on the config-1 reads
+        equal to seed_hits; index bytes per shard printed;
+     c. the CLI with --device cuda on a 48-read world in a temporary
+        directory: two shards merged, a simulated kill + --resume and
+        -d 0 each equal one unbroken -d 1 run byte for byte;
+     d. validate_batch (io/samcheck.py) on every read the card aligned
+        in phases 3-6a: no finding;
+     e. full_align_step over two entries of the card, replicated and
+        sharded index, equal to the plain CPU run.
 The script imports nothing of JAX, of the JAX package, of bench.py or of
 tools/, and fails if any of them was loaded. The last two lines are a
 JSON summary of the kernels (per kernel: launches, max_abs_err, ms and
@@ -114,6 +132,7 @@ N_10KB, N_WARM_10KB = 768, 256      # bench.py's 10 kb section
 FM_N_CHROM = 2                      # of config-4's 24 chromosomes
 N_FM_WARM, N_FM_TIMED, FM_BATCH = 128, 256, 128
 N_HIGH_ERR = 32
+N_CLI_READS, CLI_BATCH = 48, 12     # phase 6c's world (4 batches)
 
 
 def fail(msg: str) -> None:
@@ -968,7 +987,7 @@ def phase_e2e(dev, card, world):
         f"pair and on the antidiagonal pair ({adiag[True]} adiag DP "
         f"launches)")
     e2e_ms["compact_encode"] = enc_ms
-    return launches, rps, e2e_ms
+    return launches, rps, e2e_ms, out
 
 
 def phase_10kb(dev, card, world):
@@ -1022,7 +1041,7 @@ def phase_10kb(dev, card, world):
     log(f"10 kb SAM of the first {N_SAM_CHECK_10KB} timed reads "
         f"({len(sam_gpu)} records) is byte-identical between cuda and the "
         f"cpu plain path ({time.perf_counter() - t0:.1f} s on the cpu)")
-    return launches, rps
+    return out
 
 
 def log_dp_buckets():
@@ -1243,7 +1262,277 @@ def phase_fm(dev, card):
         f"retry grid, seg_quota {kw['seg_quota']}, sub1_k {k1}: cuda = cpu "
         f"on all four outputs ({int(want['valid'].sum())} valid hits); "
         f"{ms:.2f} ms on the card, {cpu_ms:.1f} ms on the host cpu")
-    return launches, rps
+    return dict(ref=ref, fmi=fmi, cfg=cfg, timed=timed, out=out,
+                hreads=hreads, ont=ont, out_h=out_h)
+
+
+def mesh_run(aligner, reads, batch):
+    """align_reads over a prepared (mesh) Aligner with the launch counts
+    and the per-entry DP instance counters set to 0 just before and read
+    just after. Returns (out, wall s, launches, instances per entry)."""
+    import torch
+
+    from lamsa_tpu_torch.pipeline.aln import align_reads
+    from lamsa_tpu_torch.utils.timers import GLOBAL as STATS
+
+    STATS.reset()
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    out = list(align_reads(aligner.ref, aligner.index, reads,
+                           aligner.config, batch_size=batch,
+                           aligner=aligner))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_entry = {k[len("dp_instances_"):]: v
+                 for k, v in sorted(STATS.counters.items())
+                 if k.startswith("dp_instances_entry")}
+    return out, wall, launch_counts(), per_entry
+
+
+def phase_mesh(card, world, out3, fm):
+    """Phase 6a: the config-1 world and the FM world's reads through an
+    Aligner over two entries of one card; SAM must equal the one-entry
+    runs of phases 3 and 5. Returns the config-1 run's launches and its
+    outputs."""
+    import torch
+
+    from lamsa_tpu_torch.parallel.mesh import make_mesh
+    from lamsa_tpu_torch.pipeline.aln import Aligner
+
+    _genome, ref, idx, cfg, reads = world
+    n_cards = torch.cuda.device_count()
+    log(f"phase 6a: data parallelism over mesh entries; "
+        f"torch.cuda.device_count() = {n_cards}")
+    meshes = [["cuda:0", "cuda:0"]]
+    if n_cards > 1:
+        meshes.append(["cuda:0", "cuda:1"])
+    launches, outs = None, []
+    for entries in meshes:
+        mesh = make_mesh(entries)
+        t0 = time.perf_counter()
+        aligner = Aligner(ref, idx, cfg, mesh=mesh)
+        aligner.align_batch(reads[:256])
+        torch.cuda.synchronize()
+        log(f"mesh {entries}: device state for {len(set(mesh))} distinct "
+            f"device(s) + warm batch {time.perf_counter() - t0:.2f} s")
+        out, wall, lc, per_entry = mesh_run(aligner, reads, 256)
+        log(f"config-1 over {entries}: {len(reads)} reads in {wall:.3f} s = "
+            f"{len(reads) / wall:.2f} reads/s on {card} (not a speed-up: "
+            f"one host thread drives every entry); DP instances per entry "
+            f"{per_entry}; kernel launches {lc}")
+        if min(lc.values()) <= 0:
+            fail(f"a kernel was never launched over {entries}: {lc}")
+        if len(per_entry) != len(mesh):
+            fail(f"not every entry ran DP instances: {per_entry}")
+        check_sam(sam_lines(out), sam_lines(out3),
+                  f"config-1 over {entries} vs one entry (phase 3)")
+        log(f"config-1 SAM over {entries} is byte-identical to phase 3's "
+            f"one-entry SAM on all {len(reads)} reads")
+        if launches is None:
+            launches = lc
+        outs.append(out)
+
+    mesh = make_mesh(meshes[0])
+    t0 = time.perf_counter()
+    fa = Aligner(fm["ref"], fm["fmi"], fm["cfg"], mesh=mesh)
+    out_f, wall, lc, per_entry = mesh_run(fa, fm["timed"], FM_BATCH)
+    log(f"FM 10 kb over {meshes[0]}: {len(fm['timed'])} reads in {wall:.3f} "
+        f"s (device state {time.perf_counter() - t0 - wall:.2f} s, index "
+        f"reused from phase 5); DP instances per entry {per_entry}; "
+        f"launches {lc}")
+    if min(lc.values()) <= 0:
+        fail(f"a kernel was never launched in the FM mesh run: {lc}")
+    check_sam(sam_lines(out_f), sam_lines(fm["out"]),
+              "FM over two entries vs one entry (phase 5)")
+    out_h = Aligner(fm["ref"], fm["fmi"], fm["ont"],
+                    mesh=mesh).align_batch(fm["hreads"])
+    check_sam(sam_lines(out_h), sam_lines(fm["out_h"]),
+              "FM 28% error over two entries vs one entry (phase 5)")
+    log(f"FM SAM over {meshes[0]} is byte-identical to phase 5's on all "
+        f"{len(fm['timed'])} timed reads and all {len(fm['hreads'])} "
+        f"28%-error reads")
+    return launches, outs + [out_f, out_h]
+
+
+def phase_sharded(world):
+    """Phase 6b: seed_hits_sharded over 2 and 4 entries of the card on
+    the config-1 reads, against seed_hits exactly."""
+    import torch
+
+    from lamsa_tpu_torch.io.fasta import encode_seq
+    from lamsa_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from lamsa_tpu_torch.parallel.sharded_index import (
+        place_sharded, seed_hits_sharded, shard_kmer_index)
+    from lamsa_tpu_torch.pipeline.seeding import make_qpos_grid, seed_hits
+    from lamsa_tpu_torch.pipeline.state import device_state
+
+    _genome, ref, idx, cfg, reads = world
+    dev = torch.device("cuda", 0)
+    L = -(-max(len(r.seq) for r in reads) // 512) * 512
+    rc = np.full((len(reads), L), 4, np.int64)
+    rl = np.zeros(len(reads), np.int64)
+    for i, r in enumerate(reads):
+        c = np.frombuffer(encode_seq(r.seq), np.uint8)
+        rc[i, :len(c)] = c
+        rl[i] = len(c)
+    grid = make_qpos_grid(L, idx.k, cfg.seed_step).astype(np.int64)
+    kw = dict(k=idx.k, cands_per_seed=cfg.max_cands_per_seed,
+              max_hits=cfg.max_hits_per_read)
+    st = device_state(ref, idx, dev)
+    whole = sum(st[n].nbytes for n in ("keys", "starts", "counts",
+                                       "positions"))
+    t = [torch.from_numpy(a).to(dev) for a in (rc, rl, grid)]
+    want = seed_hits(*t, st["keys"], st["starts"], st["counts"],
+                     st["positions"], **kw)
+    for D in (2, 4):
+        mesh = make_mesh(["cuda:0"] * D)
+        sh = place_sharded(mesh, shard_kmer_index(idx, D))
+        rc_d, rl_d = shard_batch(mesh, rc, rl)
+        parts = seed_hits_sharded(rc_d, rl_d, grid, sh["keys"], sh["starts"],
+                                  sh["counts"], sh["positions"], mesh=mesh,
+                                  **kw)
+        for n in ("qpos", "rpos", "strand", "valid"):
+            if not torch.equal(torch.cat([p[n] for p in parts]), want[n]):
+                fail(f"seed_hits_sharded over {D} entries != seed_hits ({n})")
+        per = [sum(sh[n][d].nbytes for n in ("keys", "starts", "counts",
+                                             "positions")) for d in range(D)]
+        log(f"phase 6b: seed_hits_sharded over {D} entries = seed_hits on "
+            f"all {len(reads)} config-1 reads ({int(want['valid'].sum())} "
+            f"valid hits); index bytes per shard {per} against {whole} "
+            f"whole ({whole / max(per):.2f}x less)")
+
+
+def phase_cli(card):
+    """Phase 6c: the CLI with --device cuda on a small world in a
+    temporary directory: two shards merged = one run, a simulated kill +
+    --resume = an unbroken run, -d 0 = -d 1, byte for byte."""
+    import tempfile
+
+    from lamsa_tpu_torch import cli, sim
+    from lamsa_tpu_torch.io.fasta import write_fasta, write_fastq
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(11)
+    genome = sim.random_genome(rng, 200_000)
+    reads = sim.simulate_reads(rng, genome, N_CLI_READS,
+                               read_len=(500, 3000), sv_fraction=0.25)
+    with tempfile.TemporaryDirectory() as d:
+        ref, fq = os.path.join(d, "g.fa"), os.path.join(d, "r.fq")
+        write_fasta(ref, genome)
+        write_fastq(fq, reads)
+
+        def aln(*args):
+            if cli.main(["aln", "--device", "cuda", "--batch-reads",
+                         str(CLI_BATCH), *args, ref, fq]) != 0:
+                fail(f"aln {args} exited non-zero")
+
+        def records(path):
+            return [ln for ln in open(path) if not ln.startswith("@")]
+
+        if cli.main(["index", ref]) != 0:
+            fail("cli index exited non-zero")
+        full = os.path.join(d, "full.sam")
+        aln("-o", full)
+        shards = [os.path.join(d, f"s{i}.sam") for i in range(2)]
+        for i, p in enumerate(shards):
+            aln("-o", p, "--num-shards", "2", "--shard-id", str(i))
+        merged = os.path.join(d, "merged.sam")
+        if cli.main(["merge", "-o", merged, *shards]) != 0:
+            fail("cli merge exited non-zero")
+        if records(merged) != records(full):
+            fail("CLI on cuda: two shards merged != one run")
+        # a run killed mid-batch: the cursor at 2 batches, the records of
+        # one more read and half a line of the next on disk
+        lines = open(full).read().split("\n")
+        head = [ln for ln in lines if ln.startswith("@")]
+        body = [ln for ln in lines if ln and not ln.startswith("@")]
+        starts = [i for i, ln in enumerate(body)
+                  if int(ln.split("\t")[1]) & 0x900 == 0]
+        k = 2 * CLI_BATCH
+        part = os.path.join(d, "part.sam")
+        with open(part, "w") as fh:
+            fh.write("\n".join(head + body[:starts[k + 1]]) + "\n"
+                     + body[starts[k + 1]][:30])
+        with open(part + ".progress", "w") as fh:
+            fh.write(str(k))
+        aln("-o", part, "--resume")
+        if open(part).read() != open(full).read():
+            fail("CLI on cuda: kill + --resume != an unbroken run")
+        d0, d1 = os.path.join(d, "d0.sam"), os.path.join(d, "d1.sam")
+        aln("-o", d0, "-d", "0")
+        aln("-o", d1, "-d", "1")
+        if records(d0) != records(d1) or records(d1) != records(full):
+            fail("CLI on cuda: -d 0 != -d 1")
+    log(f"phase 6c: CLI --device cuda on {N_CLI_READS} reads (batch "
+        f"{CLI_BATCH}): two shards merged = one run, kill + --resume = an "
+        f"unbroken run byte for byte, -d 0 = -d 1 "
+        f"({time.perf_counter() - t0:.1f} s on {card})")
+
+
+def phase_validate(checks):
+    """Phase 6d: validate_batch (io/samcheck.py) on every read the card
+    aligned in phases 3-6a; no finding may remain."""
+    from lamsa_tpu_torch.io.samcheck import validate_batch
+
+    t0 = time.perf_counter()
+    n_reads = n_recs = 0
+    for what, out, ref in checks:
+        errs = validate_batch(out, ref)
+        if errs:
+            fail(f"samcheck on {what}: {len(errs)} findings, first: "
+                 f"{errs[0]}")
+        n_reads += len(out)
+        n_recs += sum(len(r) for r in out)
+    log(f"phase 6d: validate_batch found nothing on all {n_reads} reads "
+        f"({n_recs} records) the card aligned in phases 3-6a "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
+def phase_steps():
+    """Phase 6e: full_align_step over two entries of the card (replicated
+    and sharded index) against the plain CPU run."""
+    import torch
+
+    from lamsa_tpu_torch import sim
+    from lamsa_tpu_torch.config import AlignConfig
+    from lamsa_tpu_torch.index.kmer import KmerIndex
+    from lamsa_tpu_torch.io.fasta import encode_seq
+    from lamsa_tpu_torch.ops.testing import make_batch
+    from lamsa_tpu_torch.parallel.mesh import full_align_step, make_mesh
+    from lamsa_tpu_torch.pipeline.seeding import make_qpos_grid
+
+    rng = np.random.default_rng(3)
+    cfg = AlignConfig(seed_step=10)
+    genome = sim.random_genome(rng, 20000)
+    codes = np.frombuffer(encode_seq(genome[0].seq), np.uint8)
+    idx = KmerIndex.build(codes, 13)
+    B, L = 16, 256
+    reads = sim.simulate_reads(rng, genome, B, read_len=(L // 2, L - 8),
+                               sub=0.01, ins=0.03, dele=0.03)
+    rc = np.full((B, L), 4, np.int32)
+    rl = np.zeros(B, np.int32)
+    for i, r in enumerate(reads):
+        c = np.frombuffer(encode_seq(r.seq), np.uint8)[:L]
+        rc[i, :len(c)] = c
+        rl[i] = len(c)
+    index = {"k": idx.k, "grid": make_qpos_grid(L, idx.k, cfg.seed_step),
+             "keys": idx.keys, "starts": idx.starts, "counts": idx.counts,
+             "positions": idx.positions}
+    q, t_win, m_len, n_len, lo = make_batch(rng, B, 128, 128)
+    dp = {"q": q, "t_win": t_win, "m_len": m_len, "n_len": n_len, "lo": lo}
+    batch = {"codes": rc, "len": rl}
+    want = full_align_step(make_mesh(["cpu"]), batch, index, dp, cfg)
+    for shard_index in (False, True):
+        got = full_align_step(make_mesh(["cuda:0", "cuda:0"]), batch, index,
+                              dp, cfg, shard_index=shard_index)
+        for part in ("chain", "dp"):
+            for n, w in want[part].items():
+                if not torch.equal(got[part][n].cpu(), w):
+                    fail(f"full_align_step on cuda (shard_index "
+                         f"{shard_index}) != cpu ({part} {n})")
+    log(f"phase 6e: full_align_step over two entries of the card = the "
+        f"plain cpu run (chains and DP scores of {B} reads and {B} "
+        f"instances, replicated and sharded index)")
 
 
 def phase_profile(dev, card, runs: int = 3):
@@ -1488,9 +1777,21 @@ def main() -> int:
     t0 = time.perf_counter()
     world = build_world()
     log(f"config-1 world built in {time.perf_counter() - t0:.1f} s")
-    launches, _rps, e2e_ms = phase_e2e(dev, card, world)
-    phase_10kb(dev, card, world)
-    phase_fm(dev, card)
+    launches, _rps, e2e_ms, out3 = phase_e2e(dev, card, world)
+    out4 = phase_10kb(dev, card, world)
+    fm = phase_fm(dev, card)
+    t6 = time.perf_counter()
+    launches_mesh, outs6 = phase_mesh(card, world, out3, fm)
+    phase_sharded(world)
+    phase_cli(card)
+    ref1, ref_fm = world[1], fm["ref"]
+    phase_validate([("phase 3", out3, ref1), ("phase 4", out4, ref1),
+                    ("phase 5", fm["out"], ref_fm),
+                    ("phase 5 28% error", fm["out_h"], ref_fm)]
+                   + [("phase 6a", o, ref1) for o in outs6[:-2]]
+                   + [("phase 6a FM", o, ref_fm) for o in outs6[-2:]])
+    phase_steps()
+    log(f"phase 6 passed in {time.perf_counter() - t6:.1f} s")
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "lamsa_tpu", "bench",
@@ -1516,10 +1817,12 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
             "bound_by": "operations" if by_ops else "bytes",
             "library_ms": None, "e2e_ms": e2e_ms[name],
-            "kernel_ms": kernel_ms[name]})
+            "kernel_ms": kernel_ms[name],
+            "launches_mesh": launches_mesh[name]})
     log("kernels: ms / plain_ms / bound_ms = one call at each of the 9 "
         "buckets (B = CHUNK_BY_M, phase 2), summed; launches = the "
-        "config-1 run of phase 3; e2e_ms = the kernel's device time in "
+        "config-1 run of phase 3, launches_mesh = that run over two "
+        "entries of the card (phase 6a); e2e_ms = the kernel's device time in "
         "one profiled config-1 pass; kernel_ms = its device time on the "
         "phase-2 work without the wrapper's launch and allocations "
         "(phase 2d, 9 buckets summed); library_ms null: no single PyTorch "

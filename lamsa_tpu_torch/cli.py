@@ -4,13 +4,19 @@
     python -m lamsa_tpu_torch.cli aln [--device cuda] <ref.fa> <reads.fq>
     python -m lamsa_tpu_torch.cli merge -o out.sam s0.sam s1.sam
 
+    python -m lamsa_tpu_torch.cli aln -o s0.sam --num-shards 2 \
+        --shard-id 0 <ref.fa> <reads.fq>        # process 0 of 2
+
 The parser, ``index`` and ``merge`` are copies of the JAX package's
 (``lamsa_tpu/cli.py``); ``aln`` is this package's own and the parser
 adds ``--device`` (default ``cuda``) to it. It aligns with the index ``index``
 built: the FM index (``index --fm``, the
-default above 200 Mb) or the k-mer table. Options whose machinery is
-not ported yet (several devices, multi-host shards, --resume) are
-refused with an error.
+default above 200 Mb) or the k-mer table. ``-d N`` splits every device
+stage over N cards (0 = all; with ``--device cpu``, N entries of the
+CPU); ``--num-shards M --shard-id P`` aligns batches b = P (mod M) into
+a shard file that ``merge`` interleaves; ``-o`` keeps a ``.progress``
+cursor of reads written, from which ``--resume`` continues a killed
+run.
 """
 
 from __future__ import annotations
@@ -33,6 +39,36 @@ def auto_kmer(genome_len: int) -> int:
     (keeps expected random hits per k-mer around or below 1)."""
     from lamsa_tpu_torch.index.kmer import auto_kmer as _ak
     return _ak(genome_len)
+
+
+def _truncate_sam_to_reads(path: str, n_reads: int) -> int:
+    """Make ``path`` crash-consistent for --resume: keep the header and
+    exactly the first ``n_reads`` reads' records, dropping anything past
+    them (a SIGKILL mid-batch leaves complete records beyond the
+    .progress cursor, which only advances per batch, plus possibly a
+    partial final line). lamsa_tpu/cli.py counts reads as distinct
+    consecutive QNAMEs, which merges two adjacent reads of one name;
+    here a read is counted at its primary record (FLAG & 0x900 == 0):
+    every read emits exactly one, first, the flag-4 record of an
+    unmapped read included. Returns the number of complete reads kept
+    (== n_reads unless the file holds fewer)."""
+    cut = 0          # byte offset after the last line we keep
+    seen = 0         # reads whose primary record was kept
+    with open(path, "rb") as fh:
+        for line in fh:
+            if not line.endswith(b"\n"):
+                break                         # partial tail line
+            if line.startswith(b"@"):         # header (QNAME can't start @)
+                cut += len(line)
+                continue
+            if int(line.split(b"\t", 2)[1]) & 0x900 == 0:
+                if seen >= n_reads:
+                    break
+                seen += 1
+            cut += len(line)
+    if cut < os.path.getsize(path):
+        os.truncate(path, cut)
+    return min(seen, n_reads)
 
 
 # genomes above this size use the FM-index (k-mer position tables would
@@ -153,10 +189,28 @@ def cmd_merge(args) -> int:
 # ---- end of the copy
 
 
-def _refuse(msg: str) -> int:
-    print(f"[lamsa_tpu_torch aln] {msg} is not ported yet (a later "
-          f"PyTorch port step, see ROADMAP.md)", file=sys.stderr)
-    return 2
+# reads between two progress lines on stderr
+PROGRESS_EVERY = 1000
+
+
+def _mesh(args):
+    """The device entries of ``-d N``: N cards (0 = all) with --device
+    cuda, N entries of the CPU with --device cpu; None for one entry.
+    Raises ValueError when more cards are asked for than are present."""
+    import torch
+
+    from lamsa_tpu_torch.parallel.mesh import make_mesh
+    if torch.device(args.device).type == "cuda":
+        avail = torch.cuda.device_count()
+        n = avail if args.devices == 0 else args.devices
+        if n > avail:
+            raise ValueError(f"--devices {n} requested but only {avail} "
+                             f"available")
+        devices = [f"cuda:{i}" for i in range(n)]
+    else:
+        n = max(args.devices, 1)
+        devices = [args.device] * n
+    return make_mesh(devices) if n > 1 else None
 
 
 def cmd_aln(args) -> int:
@@ -168,12 +222,6 @@ def cmd_aln(args) -> int:
     from lamsa_tpu_torch.io.sam import format_sam_record, sam_header
     from lamsa_tpu_torch.pipeline.aln import align_reads
 
-    if args.devices != 1:
-        return _refuse("-d/--devices (multi-device alignment)")
-    if args.num_shards != 1:
-        return _refuse("--num-shards (multi-host sharding)")
-    if args.resume:
-        return _refuse("--resume")
     idx_dir = _index_dir(args.ref)
     if not os.path.isdir(idx_dir):
         print(f"[lamsa_tpu_torch aln] no index at {idx_dir}; "
@@ -198,10 +246,67 @@ def cmd_aln(args) -> int:
                       sv_min_size=args.sv_min, sv_max_size=args.sv_max,
                       report_secondary=args.secondary)
 
-    out = open(args.output, "w") if args.output else sys.stdout
-    cl = " ".join(sys.argv[1:])
-    print(sam_header(ref, f"lamsa_tpu_torch aln {cl}", rg_id=cfg.rg_id),
-          file=out)
+    # --- data parallelism over -d N device entries: every device stage
+    # splits its rows over them; SAM identical to one device
+    try:
+        mesh = _mesh(args)
+    except ValueError as e:
+        print(f"[lamsa_tpu_torch aln] {e}", file=sys.stderr)
+        return 1
+    if mesh is not None:
+        print(f"[lamsa_tpu_torch aln] data-parallel over {len(mesh)} "
+              f"devices", file=sys.stderr)
+
+    # --- multi-host read sharding: process P of M owns batches
+    # b == P (mod M); `merge` interleaves the shard files in input order
+    n_shards, shard_id = args.num_shards, args.shard_id
+    if n_shards > 1:
+        if not args.output:
+            print("[lamsa_tpu_torch aln] --num-shards requires -o",
+                  file=sys.stderr)
+            return 1
+        if not (0 <= shard_id < n_shards):
+            print(f"[lamsa_tpu_torch aln] --shard-id {shard_id} out of "
+                  f"range", file=sys.stderr)
+            return 1
+
+    # --- resume: the .progress sidecar counts reads fully written; on
+    # --resume, skip that many input reads (of this shard) and append
+    skip = 0
+    prog_path = (args.output + ".progress") if args.output else None
+    if args.resume and args.output and os.path.exists(args.output) \
+            and os.path.exists(prog_path):
+        with open(prog_path) as fh:
+            skip = int(fh.read().strip() or 0)
+        # a kill mid-batch leaves records past the cursor and possibly a
+        # partial line; trim to the cursor so that appending yields the
+        # bytes of an uninterrupted run
+        kept = _truncate_sam_to_reads(args.output, skip)
+        if kept < skip:
+            print(f"[lamsa_tpu_torch aln] progress cursor {skip} ahead of "
+                  f"output ({kept} reads); resuming after {kept}",
+                  file=sys.stderr)
+            skip = kept
+        print(f"[lamsa_tpu_torch aln] resuming after {skip} reads",
+              file=sys.stderr)
+        out = open(args.output, "a")
+    else:
+        out = open(args.output, "w") if args.output else sys.stdout
+        cl = " ".join(sys.argv[1:])
+        print(sam_header(ref, f"lamsa_tpu_torch aln {cl}",
+                         rg_id=cfg.rg_id), file=out)
+        if n_shards > 1:
+            print(f"@CO\tlamsa_tpu_shard:{shard_id}/{n_shards}\t"
+                  f"batch_reads:{cfg.batch_reads}", file=out)
+
+    def read_stream():
+        n_seen = 0              # reads of this shard, skipped ones too
+        for i, r in enumerate(read_fastx(args.reads)):
+            if (i // cfg.batch_reads) % n_shards != shard_id:
+                continue
+            if n_seen >= skip:
+                yield r
+            n_seen += 1
 
     stats_fh = None
     if args.stats:
@@ -219,20 +324,40 @@ def cmd_aln(args) -> int:
         import json
         from lamsa_tpu_torch.utils.timers import GLOBAL as STATS
         snap = STATS.snapshot()
-        snap["reads_done"] = n_reads
-        snap["wall_total_s"] = round(time.time() - t0, 3)
+        snap["reads_done"] = skip + n_reads
+        wall = time.time() - t0
+        snap["wall_total_s"] = round(wall, 3)
+        # DP cells enqueued over the end-to-end wall
+        cells = sum(v for k, v in snap["counters"].items()
+                    if k.startswith("dp_cells_"))
+        snap["dp_cells_total"] = cells
+        snap["achieved_gcells_per_s"] = round(cells / max(wall, 1e-9) / 1e9,
+                                              4)
         print(json.dumps(snap), file=stats_fh)
         stats_fh.flush()
 
-    for recs in align_reads(ref, index, read_fastx(args.reads), cfg,
-                            device=args.device):
+    def write_progress():
+        if prog_path:
+            with open(prog_path, "w") as fh:
+                fh.write(str(skip + n_reads))
+
+    for recs in align_reads(ref, index, read_stream(), cfg,
+                            device=args.device, mesh=mesh):
         n_reads += 1
         for rec in recs:
             print(format_sam_record(rec), file=out)
             n_records += 1
         if n_reads % cfg.batch_reads == 0:
             out.flush()
+            write_progress()
             emit_stats()
+        if n_reads % PROGRESS_EVERY == 0:
+            dt = time.time() - t0
+            print(f"[lamsa_tpu_torch aln] {n_reads} reads, "
+                  f"{n_reads / dt:.1f} reads/s", file=sys.stderr)
+    if args.output:
+        out.flush()
+    write_progress()
     emit_stats()
     if stats_fh is not None and stats_fh is not sys.stderr:
         stats_fh.close()

@@ -13,18 +13,22 @@ through
   host:    native compact decode, CIGAR stitching, MAPQ,
            primary/supplementary selection, SA:Z linking, SAM records
 
-Every tensor lives on the Aligner's explicit ``device``. On ``cuda``
-the DP stages launch the hand-written kernels; on ``cpu`` the same code
-runs their plain torch versions. Nothing moves to another device on
-failure. The host methods (skeleton, part enqueue, finalize, MAPQ) are
-copies of the JAX package's: its module imports jax, so it cannot be
-imported here.
+Every tensor lives on the Aligner's explicit ``device``, or on the
+entries of its ``mesh`` (parallel/mesh.py): the index and reference
+once per distinct device, each read-length group's rows and each DP
+chunk's instances split into contiguous blocks, one per entry, results
+joined in input order. On ``cuda`` the DP stages launch the
+hand-written kernels; on ``cpu`` the same code runs their plain torch
+versions. Nothing moves to another device on failure. The host methods
+(skeleton, part enqueue, finalize, MAPQ) are copies of the JAX
+package's: its module imports jax, so it cannot be imported here.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import numpy as np
 import torch
@@ -42,6 +46,8 @@ from lamsa_tpu_torch.ops.chain import chain_hits
 from lamsa_tpu_torch.ops.fm import edit1_tracks
 from lamsa_tpu_torch.ops.wire import gather_packed_run, pack_codes_words, \
     to_i32
+from lamsa_tpu_torch.parallel.mesh import distinct, make_mesh, \
+    norm_device, row_blocks
 from lamsa_tpu_torch.pipeline.extend import (_MIN_SLACK, EXT_MARGIN,
                                              MAX_BUCKET_M, DpBatcher,
                                              compute_nm, md_tag)
@@ -149,17 +155,25 @@ class Aligner:
     """Aligner over a PackedReference and a KmerIndex (small and medium
     genomes) or an FmIndex (whole genomes) on one explicit torch device
     ("cuda" runs the kernels, "cpu" their plain versions). The native
-    host library is required (compact decode, overflow recompute)."""
+    host library is required (compact decode, overflow recompute).
+
+    mesh: optional device entries for read-level data parallelism
+    (parallel/mesh.py make_mesh; they replace ``device`` and may repeat
+    a device). SAM is byte-identical to the one-device run."""
 
     def __init__(self, ref: PackedReference, index: KmerIndex | FmIndex,
-                 config: AlignConfig | None = None, device="cuda"):
+                 config: AlignConfig | None = None, device="cuda",
+                 mesh=None):
         from lamsa_tpu_torch import native
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {self.device} requested but "
-                               f"torch.cuda.is_available() is False")
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"unsupported device {self.device}")
+        self.mesh = make_mesh(mesh) if mesh is not None else None
+        self.entries = self.mesh or (norm_device(device),)
+        self.device = self.entries[0]
+        for dev in distinct(self.entries):
+            if dev.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError(f"device {dev} requested but "
+                                   f"torch.cuda.is_available() is False")
+            if dev.type not in ("cuda", "cpu"):
+                raise ValueError(f"unsupported device {dev}")
         if not native.available():
             raise RuntimeError("the native host library "
                                "(lamsa_tpu_torch/native) is required and "
@@ -183,18 +197,27 @@ class Aligner:
         else:
             self.seed_backend = "kmer"
             self.k = index.k
-        self._state = device_state(ref, index, self.device)
+        # index and reference tensors, once per distinct device
+        self._states = {dev: device_state(ref, index, dev)
+                        for dev in distinct(self.entries)}
+        self._state = self._states[self.device]
         self._grids = {}
         self._inflight_budget = self._compute_inflight_budget() \
             if self.device.type == "cuda" else None
 
     def _compute_inflight_budget(self) -> int:
-        """Device-byte budget for in-flight DP chunk workspace: 60% of
-        device memory minus the resident index/ref tensors (the JAX
-        package's default fraction)."""
+        """Device-byte budget for in-flight DP chunk workspace: a
+        fraction of device memory minus the resident index/ref tensors.
+        LAMSA_INFLIGHT_BUDGET (bytes) overrides it;
+        LAMSA_INFLIGHT_FRACTION sets the fraction (default 0.6), as in
+        the JAX package."""
+        env = os.environ.get("LAMSA_INFLIGHT_BUDGET")
+        if env:
+            return int(float(env))
         _, limit = torch.cuda.mem_get_info(self.device)
         resident = sum(t.nbytes for t in self._state.values())
-        return max(int(max(limit - resident, 0) * 0.6), 256 << 20)
+        frac = float(os.environ.get("LAMSA_INFLIGHT_FRACTION", "0.6"))
+        return max(int(max(limit - resident, 0) * frac), 256 << 20)
 
     # ------------------------------------------------------------- batching
 
@@ -238,19 +261,23 @@ class Aligner:
             flat[pos:pos + len(c)] = c
             pos += len(c)
         flat_offs[-1] = pos
-        flat_dev = torch.from_numpy(pack_codes_words(flat)).to(self.device)
+        words = torch.from_numpy(pack_codes_words(flat))
+        flat_devs = {dev: words.to(dev) for dev in self._states}
 
+        sources = [(flat_devs[dev], self._states[dev]["ref_words"])
+                   for dev in self.entries]
         batcher = DpBatcher(cfg.scores,
-                            device_sources=(flat_dev,
-                                            self._state["ref_words"]),
+                            device_sources=sources if self.mesh
+                            else sources[0],
                             host_sources=(flat, self.ref.codes),
                             min_band=cfg.band_width,
-                            inflight_budget=self._inflight_budget)
+                            inflight_budget=self._inflight_budget,
+                            mesh=self.mesh)
         pending: list[tuple[int, list[_PendingPart], object]] = []
 
         for L, idxs in sorted(groups.items()):
             with STATS.stage("seed_chain_device"):
-                hit_arrays = self._seed_and_chain(codes, idxs, L, flat_dev,
+                hit_arrays = self._seed_and_chain(codes, idxs, L, flat_devs,
                                                   flat_offs)
             with STATS.stage("skeleton_host"):
                 for gi, ri in enumerate(idxs):
@@ -281,13 +308,33 @@ class Aligner:
 
     # -------------------------------------------------------- device stages
 
-    def _seed_chain_packed(self, rc, lens, grid, common, sub1=False):
-        """Seed + chain one (sub-)batch on the device; returns the packed
+    def _seed_chain_rows(self, rows, offs, lens_h, L, step, common,
+                         flat_devs, sub1=False):
+        """Seed + chain the group rows ``rows`` with their rows split into
+        contiguous blocks, one per entry: each block's (B, L) read matrix
+        is gathered on its entry's device from the batch's flat code
+        words. Returns the packed (3, len(rows), H) planes in row
+        order."""
+        parts = []
+        for dev, (a, b) in zip(self.entries,
+                               row_blocks(len(rows), len(self.entries))):
+            if a == b:
+                continue
+            r = rows[a:b]
+            lens = torch.from_numpy(lens_h[r]).to(dev)
+            rc = gather_rc(flat_devs[dev], torch.from_numpy(offs[r]).to(dev),
+                           lens, L=L)
+            parts.append(self._seed_chain_packed(
+                rc, lens, self._grid(L, step, dev), common, dev, sub1))
+        return np.concatenate(parts, axis=1)
+
+    def _seed_chain_packed(self, rc, lens, grid, common, dev, sub1=False):
+        """Seed + chain one block on device ``dev``; returns the packed
         (3, B, H) int32 planes (_pack_hits_chain) as a host array.
         sub1 adds the FM backend's 1-edit variant tracks (the adaptive
         re-seed only)."""
         cfg = self.config
-        st = self._state
+        st = self._states[dev]
         kw = dict(k=common["k"], cands_per_seed=common["cands_per_seed"],
                   max_hits=common["max_hits"])
         with STATS.stage("seed_hits"):
@@ -303,33 +350,29 @@ class Aligner:
                     sub1_cands=cfg.seed_1edit_cands if sub1 else 0,
                     sub1_k=self._sub1_k() if sub1 else 0,
                     sub1_kinds=cfg.seed_1edit_kinds, **kw)
-            if self.device.type == "cuda":
+            if dev.type == "cuda":
                 # the stage's seconds are the device's, not the enqueue's
-                torch.cuda.synchronize(self.device)
+                torch.cuda.synchronize(dev)
         return _pack_hits_chain(
             hits, weight=common["weight"], lookback=common["lookback"],
             max_dist=common["max_dist"],
             diag_slack=common["diag_slack"]).cpu().numpy()
 
-    def _seed_and_chain(self, codes, idxs, L, flat_dev, flat_offs):
+    def _seed_and_chain(self, codes, idxs, L, flat_devs, flat_offs):
         """Device seeding+chaining for one read-length bucket: the (B, L)
         read matrix is gathered from the batch's flat code words, and
-        all hit arrays come back in one packed transfer."""
+        all hit arrays come back in one packed transfer per entry."""
         cfg = self.config
-        dev = self.device
         offs = np.array([flat_offs[ri] for ri in idxs], np.int64)
         lens_h = np.array([min(len(codes[ri]), L) for ri in idxs], np.int64)
-        lens = torch.from_numpy(lens_h).to(dev)
-        rc = gather_rc(flat_dev, torch.from_numpy(offs).to(dev), lens, L=L)
         common = dict(k=self.k, cands_per_seed=cfg.max_cands_per_seed,
                       max_hits=cfg.max_hits_per_read, weight=self.k,
                       lookback=cfg.chain_lookback,
                       max_dist=cfg.chain_max_dist,
                       diag_slack=cfg.chain_diag_slack)
 
-        packed = self._seed_chain_packed(rc, lens,
-                                         self._grid(L, cfg.seed_step),
-                                         common)
+        packed = self._seed_chain_rows(np.arange(len(idxs)), offs, lens_h,
+                                       L, cfg.seed_step, common, flat_devs)
         # Adaptive densification: reads whose BEST chain carries fewer
         # than adaptive_seed_min_anchors anchors' worth of score (length-
         # scaled), or that leave a long stretch of clean seed windows
@@ -375,18 +418,20 @@ class Aligner:
                 # only the sparse reads re-seed, in sub-batches capped by
                 # an element budget (bounds the retry's device footprint);
                 # on the FM backend the retry adds the 1-edit variant
-                # tracks, whose key/row arrays the budget counts too
+                # tracks, whose key/row arrays the budget counts too. The
+                # sub-batches are formed as on one device and only then
+                # split over the mesh's entries.
                 sel = np.flatnonzero(sparse)
-                grid_d = self._grid(L, max(2, cfg.seed_step // 2))
+                step_d = max(2, cfg.seed_step // 2)
                 sub1 = self.seed_backend == "fm"
-                cap = self._retry_cap(int(grid_d.shape[0]))
+                cap = self._retry_cap(
+                    len(make_qpos_grid(L, self.k, step_d)))
                 packed = packed.copy()
                 for c0 in range(0, len(sel), cap):
                     chunk = sel[c0:c0 + cap]
-                    ci = torch.from_numpy(chunk).to(dev)
-                    dense = self._seed_chain_packed(rc[ci], lens[ci],
-                                                    grid_d, common,
-                                                    sub1=sub1)
+                    dense = self._seed_chain_rows(chunk, offs, lens_h, L,
+                                                  step_d, common, flat_devs,
+                                                  sub1=sub1)
                     # union-merge: the retry only ADDS evidence
                     packed[:, chunk] = self._merge_rechain(
                         packed[:, chunk], dense, common)
@@ -439,19 +484,21 @@ class Aligner:
             key[i, kill] = _MERGE_INV
         key = np.sort(key, axis=1)[:, :H]
         valid = key < _MERGE_INV
-        dev = self.device
-        hits = {
-            "qpos": torch.from_numpy(
-                np.where(valid, (key >> 32) & 0x7FFFF, 0)).to(dev),
-            "rpos": torch.from_numpy(
-                np.where(valid, key & 0xFFFFFFFF, 0)).to(dev),
-            "strand": torch.from_numpy(np.where(valid, key >> 51, 0)).to(dev),
-            "valid": torch.from_numpy(valid).to(dev),
-        }
-        return _pack_hits_chain(
-            hits, weight=common["weight"], lookback=common["lookback"],
-            max_dist=common["max_dist"],
-            diag_slack=common["diag_slack"]).cpu().numpy()
+        planes = {"qpos": np.where(valid, (key >> 32) & 0x7FFFF, 0),
+                  "rpos": np.where(valid, key & 0xFFFFFFFF, 0),
+                  "strand": np.where(valid, key >> 51, 0), "valid": valid}
+        parts = []                  # re-chained in row blocks per entry
+        for dev, (a, b) in zip(self.entries,
+                               row_blocks(n, len(self.entries))):
+            if a == b:
+                continue
+            hits = {name: torch.from_numpy(v[a:b]).to(dev)
+                    for name, v in planes.items()}
+            parts.append(_pack_hits_chain(
+                hits, weight=common["weight"], lookback=common["lookback"],
+                max_dist=common["max_dist"],
+                diag_slack=common["diag_slack"]).cpu().numpy())
+        return np.concatenate(parts, axis=1)
 
     def _retry_cap(self, n_windows: int) -> int:
         """Reads per adaptive re-seed sub-batch: the largest power of two
@@ -495,14 +542,13 @@ class Aligner:
             k1 += 1
         return k1
 
-    def _grid(self, L, step):
-        """qpos sample grid per (bucket length, step), cached on the
+    def _grid(self, L, step, dev):
+        """qpos sample grid per (bucket length, step), cached on each
         device."""
-        key = (L, step)
+        key = (L, step, dev)
         if key not in self._grids:
             self._grids[key] = torch.from_numpy(
-                make_qpos_grid(L, self.k, step).astype(np.int64)).to(
-                    self.device)
+                make_qpos_grid(L, self.k, step).astype(np.int64)).to(dev)
         return self._grids[key]
 
     def _build_skeleton(self, h, gi, read_len):
@@ -813,14 +859,15 @@ def align_reads(ref: PackedReference, index: KmerIndex | FmIndex, reads,
                 config: AlignConfig | None = None,
                 batch_size: int | None = None,
                 aligner: "Aligner | None" = None,
-                device="cuda"):
+                device="cuda", mesh=None):
     """Align an iterable of reads, yielding SAM record lists per read in
     input order, one batch at a time.
 
     aligner — reuse a prepared Aligner (keeps the device state); its
-    device then decides."""
+    device or mesh then decides. mesh — device entries for data
+    parallelism (Aligner)."""
     cfg = config or AlignConfig()
-    aligner = aligner or Aligner(ref, index, cfg, device=device)
+    aligner = aligner or Aligner(ref, index, cfg, device=device, mesh=mesh)
     bs = batch_size or cfg.batch_reads
     batch: list = []
     for r in reads:

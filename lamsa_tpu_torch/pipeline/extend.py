@@ -14,7 +14,10 @@ overflowed are recomputed on the host with ``native.banded_sw_tb``.
 
 Chunks are launched unpadded (eager torch has no compile signatures to
 keep closed) on the current CUDA stream; the collect thread's ``.cpu()``
-waits for them.
+waits for them. With a mesh (parallel/mesh.py), each chunk's instances
+are split into contiguous ranges, one per entry; each range launches on
+its entry's device and sources, on a stream of its own that first waits
+for the uploads, and its collect waits for that stream's work.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from lamsa_tpu_torch.utils.timers import GLOBAL as STATS
 from lamsa_tpu_torch.ops.dp_chain import dp_tb_adiag_gather, dp_tb_gather
 from lamsa_tpu_torch.ops.wire import a_pad, collect_group, global_lo, \
     pack_desc
+from lamsa_tpu_torch.parallel.mesh import row_blocks
 
 # (max query length, band width) buckets; instances pick the first
 # bucket that fits (lamsa_tpu/pipeline/extend.py BUCKETS).
@@ -139,14 +143,19 @@ class DpBatcher:
 
     device_sources — (flat_read_words, ref_words): the batch's packed
     read codes and the reference, resident on the device the chunks run
-    on. host_sources — the same codes as host arrays (flat_read_codes,
-    ref_codes), for the rare host recompute."""
+    on; with a mesh, one such pair per entry. host_sources — the same
+    codes as host arrays (flat_read_codes, ref_codes), for the rare host
+    recompute. mesh — device entries the instances of each chunk are
+    split over (None: one device)."""
 
     def __init__(self, scores, device_sources, host_sources,
-                 min_band: int = 0, inflight_budget: int | None = None):
+                 min_band: int = 0, inflight_budget: int | None = None,
+                 mesh=None):
         self.scores = scores
         self.device_sources = device_sources
         self.host_sources = host_sources
+        self.mesh = mesh
+        self.streams = {}               # mesh entry -> its CUDA stream
         # device bytes chunks may hold between launch and collect
         # (None = unlimited); shared across concurrent batchers
         self.inflight_budget = inflight_budget
@@ -270,6 +279,8 @@ class DpBatcher:
         """Launch one chunk under the in-flight budget and hand its
         collect to the decode pool."""
         est = _chunk_inflight_bytes(M, W, adiag)
+        if self.mesh is not None:
+            est //= len(self.mesh)          # each entry holds its range
         bud = self.inflight_budget
         if bud:
             _LIMITER.acquire(est, bud)
@@ -340,7 +351,9 @@ class DpBatcher:
     def _dispatch_cols(self, sl, M, W, adiag=False):
         """Pack a descriptor slice into the (K, 4) wire, copy it to the
         device and launch the chunk on the antidiagonal pair (adiag: all
-        instances global) or the row pair (no wait)."""
+        instances global) or the row pair (no wait). Returns the slice
+        and the launched parts [(lo, hi, wire, done event or None)]: one
+        for the whole chunk, or one per entry's range under a mesh."""
         K = len(sl["m"])
         with STATS.stage(f"dp_build_{M}x{W}"):
             sl = dict(sl)
@@ -355,38 +368,80 @@ class DpBatcher:
         if adiag:
             STATS.count("dp_adiag_instances", K)
         with STATS.stage(f"dp_dispatch_{M}x{W}"):
-            flat_dev, ref_dev = self.device_sources
-            desc_dev = torch.from_numpy(desc).to(flat_dev.device)
-            if adiag:
-                dev = dp_tb_adiag_gather(flat_dev, ref_dev, desc_dev, M=M,
-                                         W=W, scores=self.scores)
+            if self.mesh is None:
+                flat_dev, ref_dev = self.device_sources
+                wire = self._chunk(flat_dev, ref_dev,
+                                   torch.from_numpy(desc).to(flat_dev.device),
+                                   M, W, adiag)
+                parts = [(0, K, wire, None)]
             else:
-                dev = dp_tb_gather(flat_dev, ref_dev, desc_dev, M=M, W=W,
-                                   scores=self.scores,
-                                   zdrop=self.scores.zdrop)
-        return sl, M, W, dev, adiag
+                parts = self._dispatch_split(desc, M, W, adiag)
+        return sl, M, W, parts, adiag
 
-    def _collect(self, sl, M, W, dev, topdown=False):
+    def _chunk(self, flat_dev, ref_dev, desc_dev, M, W, adiag):
+        if adiag:
+            return dp_tb_adiag_gather(flat_dev, ref_dev, desc_dev, M=M, W=W,
+                                      scores=self.scores)
+        return dp_tb_gather(flat_dev, ref_dev, desc_dev, M=M, W=W,
+                            scores=self.scores, zdrop=self.scores.zdrop)
+
+    def _dispatch_split(self, desc, M, W, adiag):
+        """One chunk's instances in contiguous ranges over the mesh. A
+        CUDA range runs on its entry's stream after the uploads on the
+        device's current stream; its inputs are marked in use by that
+        stream, and an event marks its end for the collect."""
+        parts = []
+        for e, (dev, (a, b)) in enumerate(zip(
+                self.mesh, row_blocks(len(desc), len(self.mesh)))):
+            if a == b:
+                continue
+            STATS.count(f"dp_instances_entry{e}", b - a)
+            flat_dev, ref_dev = self.device_sources[e]
+            desc_dev = torch.from_numpy(desc[a:b]).to(dev)
+            if dev.type != "cuda":
+                parts.append((a, b, self._chunk(flat_dev, ref_dev, desc_dev,
+                                                M, W, adiag), None))
+                continue
+            with torch.cuda.device(dev):
+                if e not in self.streams:
+                    self.streams[e] = torch.cuda.Stream(dev)
+                s = self.streams[e]
+                s.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(s):
+                    wire = self._chunk(flat_dev, ref_dev, desc_dev, M, W,
+                                       adiag)
+                    done = torch.cuda.Event()
+                    done.record(s)
+                for t in (flat_dev, ref_dev, desc_dev):
+                    t.record_stream(s)
+            parts.append((a, b, wire, done))
+        return parts
+
+    def _collect(self, sl, M, W, parts, topdown=False):
         from lamsa_tpu_torch import native
-        with STATS.stage(f"dp_collect_{M}x{W}"):
-            cigars, score, si, sd = collect_group(dev, M, topdown)
-        K = len(sl["idx"])
-        idxs = sl["idx"].tolist()
-        los = sl["lo"].tolist()
-        i_l = si[:K].tolist()
-        j_l = (si[:K] + sl["lo"] + sd[:K]).tolist()
-        sc_l = score[:K].tolist()
         res = self._results
-        for b in range(K):
-            cig = cigars[b]
-            if cig is None:
-                # compact event budget overflowed on device (rare:
-                # > E deletions in one gap) — recompute this instance
-                # bit-identically on the host
-                q, t = self._materialize(sl, b)
-                cig = native.banded_sw_tb(q, t, self.scores, los[b],
-                                          los[b] + W - 1, i_l[b], j_l[b])
-            res[idxs[b]] = DpResult(sc_l[b], cig, i_l[b], j_l[b])
+        for a, b, wire, done in parts:
+            if done is not None:
+                done.synchronize()
+            with STATS.stage(f"dp_collect_{M}x{W}"):
+                cigars, score, si, sd = collect_group(wire, M, topdown)
+            K = b - a
+            lo = sl["lo"][a:b]
+            idxs = sl["idx"][a:b].tolist()
+            los = lo.tolist()
+            i_l = si[:K].tolist()
+            j_l = (si[:K] + lo + sd[:K]).tolist()
+            sc_l = score[:K].tolist()
+            for x in range(K):
+                cig = cigars[x]
+                if cig is None:
+                    # compact event budget overflowed on device (rare:
+                    # > E deletions in one gap) — recompute this instance
+                    # bit-identically on the host
+                    q, t = self._materialize(sl, a + x)
+                    cig = native.banded_sw_tb(q, t, self.scores, los[x],
+                                              los[x] + W - 1, i_l[x], j_l[x])
+                res[idxs[x]] = DpResult(sc_l[x], cig, i_l[x], j_l[x])
 
     def result(self, idx: int) -> DpResult:
         r = self._results[idx]

@@ -446,3 +446,68 @@ def test_worlds_10kb_reads_follow_bench():
                                 sv_fraction=0.15)
     assert same(worlds.reads_10kb(genome), want)
     assert os.path.basename(worlds.__file__) == "worlds.py"
+
+
+# ---------------------------------------------------------------- samcheck
+
+@pytest.fixture(scope="module")
+def aligned_world():
+    """A clean multi-part batch from the JAX CPU engine
+    (tests/test_samcheck.py's mutation world) and the port's reference."""
+    from lamsa_tpu.pipeline.aln import Aligner
+    from lamsa_tpu_torch.ops.testing import port_world
+    from tests.test_e2e import CFG, make_ref
+    rng = np.random.default_rng(13)
+    genome, ref, idx = make_ref(rng, 120000)
+    reads = j_sim.simulate_reads(rng, genome, 8, read_len=(1500, 3000),
+                                 sub=0.01, ins=0.03, dele=0.03,
+                                 sv_fraction=1.0, name_prefix="m")
+    return ref, port_world(ref)[0], Aligner(ref, idx, CFG).align_batch(reads)
+
+
+def _mutate(recs, case, mod):
+    recs = [dataclasses.replace(r, tags=dict(r.tags)) for r in recs]
+    if case == "nm":
+        recs[0].tags["NM"] += 1
+    elif case == "cigar":
+        pairs = list(mod.cigar_pairs(recs[0].cigar))
+        pairs[0] = (pairs[0][0], pairs[0][1] + 3)
+        recs[0].cigar = pairs
+    elif case == "sa":
+        recs[0].tags["SA"] = "chr_bogus,1,+,10M,0,0;"
+    elif case == "primary":
+        recs[1].flag &= ~mod.FLAG_SUPPLEMENTARY
+    elif case == "bounds":
+        recs[0].pos = 10 ** 7
+    return recs
+
+
+@pytest.mark.parametrize("case", ["clean", "nm", "cigar", "sa", "primary",
+                                  "bounds"])
+def test_samcheck_copy(case, aligned_world):
+    """validate_batch gives the same findings on the same records: none
+    on the engine's clean batch, the same list on each mutation."""
+    from lamsa_tpu.io import samcheck as j_check
+    from lamsa_tpu_torch.io import samcheck as p_check
+    jref, pref, out = aligned_world
+    multi = next(recs for recs in out if len(recs) > 1)
+    j_recs = [_mutate(r, case, j_sam) if r is multi else r for r in out]
+    p_recs = [[p_sam.SamRecord(**{f.name: getattr(x, f.name) for f in
+                                  dataclasses.fields(x)}) for x in r]
+              for r in j_recs]
+    want = j_check.validate_batch(j_recs, jref)
+    assert p_check.validate_batch(p_recs, pref) == want
+    assert (want == []) == (case == "clean")
+
+
+@pytest.mark.parametrize("D", [1, 3, 8])
+@pytest.mark.parametrize("k", [13, 16])
+def test_shard_kmer_index_copy(D, k):
+    from lamsa_tpu.parallel import sharded_index as j_sh
+    from lamsa_tpu_torch.parallel import sharded_index as p_sh
+    codes = _genome_codes(np.random.default_rng(23), 20_000)
+    codes[5000:5040] = 3                    # an all-T run: key 0xFFFFFFFF
+    got = p_sh.shard_kmer_index(p_kmer.KmerIndex.build(codes, k), D)
+    want = j_sh.shard_kmer_index(j_kmer.KmerIndex.build(codes, k), D)
+    assert same(got, want)
+    assert same(p_sh._PAD_KEY, j_sh._PAD_KEY)

@@ -130,6 +130,51 @@ def test_dp_tb_gather_cuda_matches_cpu(dev):
     assert torch.equal(wires[0], wires[1])
 
 
+def _batcher_results(mesh, dev):
+    """One DpBatcher run over 300 global gap fills and 200 extensions on
+    random codes: on one device (mesh None) or split over the mesh."""
+    from lamsa_tpu_torch.pipeline.extend import DpBatcher
+    from lamsa_tpu_torch.ops.wire import pack_codes_words
+    rng = np.random.default_rng(11)
+    flat = rng.integers(0, 4, 60000).astype(np.uint8)
+    refc = rng.integers(0, 4, 90000).astype(np.uint8)
+    fw, rw = (torch.from_numpy(pack_codes_words(a)) for a in (flat, refc))
+    src = {d: (fw.to(d), rw.to(d)) for d in set(mesh or [dev])}
+    b = DpBatcher(S, device_sources=[src[d] for d in mesh] if mesh
+                  else src[dev], host_sources=(flat, refc), mesh=mesh)
+    K = 300
+    m = rng.integers(20, 400, K)
+    n = np.maximum(m + rng.integers(-30, 30, K), 1)
+    h0 = b.add_globals_bulk(m, n, rng.integers(0, 50000, K), 1, 0,
+                            rng.integers(0, 80000, K))
+    hs = [b.add_extend_desc(int(x), int(x) + 40, 5,
+                            (int(rng.integers(600, 50000)), -1, 1),
+                            (int(rng.integers(0, 80000)), 1))
+          for x in rng.integers(10, 500, 200)]
+    b.run()
+    return b, [(r.score, r.cigar.tobytes(), r.q_used, r.t_used)
+               for r in (b.result(h) for h in list(range(h0, h0 + K)) + hs)]
+
+
+def test_dp_batcher_two_entries_on_one_card(dev):
+    """A DpBatcher over the mesh (cuda:0, cuda:0) splits each chunk into
+    two ranges, each launched on its entry's stream after the uploads;
+    results equal the one-entry run instance by instance, and every
+    kernel launches once per range."""
+    from lamsa_tpu_torch.ops import (banded_sw_adiag, banded_sw_row,
+                                     traceback_adiag, traceback_row)
+    mods = (banded_sw_row, traceback_row, banded_sw_adiag, traceback_adiag)
+    _, one = _batcher_results(None, dev)
+    n0 = [m.LAUNCHES for m in mods]
+    b, two = _batcher_results((dev, dev), dev)
+    torch.cuda.synchronize()
+    assert two == one
+    launched = [m.LAUNCHES - n for m, n in zip(mods, n0)]
+    assert min(launched) >= 2
+    assert len(set(b.streams.values())) == 2
+    assert torch.cuda.current_stream(dev) not in b.streams.values()
+
+
 @pytest.mark.parametrize("B", [1, 37])
 @pytest.mark.parametrize("M,W", [(5120, 256), (128, 128)])
 def test_dp_kernels_small_chunks_and_thread_edges(dev, M, W, B):

@@ -22,13 +22,16 @@ PORT_MODULES = [
     "lamsa_tpu_torch.config", "lamsa_tpu_torch.eval",
     "lamsa_tpu_torch.index.fmindex", "lamsa_tpu_torch.index.kmer",
     "lamsa_tpu_torch.io.fasta", "lamsa_tpu_torch.io.refpack",
-    "lamsa_tpu_torch.io.sam", "lamsa_tpu_torch.native",
+    "lamsa_tpu_torch.io.sam", "lamsa_tpu_torch.io.samcheck",
+    "lamsa_tpu_torch.native",
     "lamsa_tpu_torch.ops.banded_sw_adiag",
     "lamsa_tpu_torch.ops.banded_sw_row", "lamsa_tpu_torch.ops.chain",
     "lamsa_tpu_torch.ops.dp_chain", "lamsa_tpu_torch.ops.fm",
     "lamsa_tpu_torch.ops.testing",
     "lamsa_tpu_torch.ops.traceback_adiag",
     "lamsa_tpu_torch.ops.traceback_row", "lamsa_tpu_torch.ops.wire",
+    "lamsa_tpu_torch.parallel.mesh", "lamsa_tpu_torch.parallel.multihost",
+    "lamsa_tpu_torch.parallel.sharded_index",
     "lamsa_tpu_torch.pipeline.aln",
     "lamsa_tpu_torch.pipeline.extend", "lamsa_tpu_torch.pipeline.seeding",
     "lamsa_tpu_torch.pipeline.skeleton", "lamsa_tpu_torch.pipeline.state",
@@ -97,8 +100,9 @@ def test_port_files_import_nothing_of_the_jax_package(path):
 
 def test_cli_index_and_aln_on_cpu_without_jax(tmp_path):
     """index + aln --device cpu through the port's CLI in a fresh
-    process: SAM comes out, and neither jax nor any module of the JAX
-    package is ever imported."""
+    process, plain and with -d 2, a shard of two and --resume: SAM comes
+    out, and neither jax nor any module of the JAX package is ever
+    imported."""
     from lamsa_tpu import sim
     from lamsa_tpu.io.fasta import write_fasta, write_fastq
     rng = np.random.default_rng(7)
@@ -107,27 +111,31 @@ def test_cli_index_and_aln_on_cpu_without_jax(tmp_path):
     fa, fq = str(tmp_path / "g.fa"), str(tmp_path / "r.fq")
     write_fasta(fa, genome)
     write_fastq(fq, reads)
+    out, shard = str(tmp_path / "o.sam"), str(tmp_path / "s.sam")
     code = ("import sys\n"
             "from lamsa_tpu_torch.cli import main\n"
-            "rc = main(['index', '-k', '13', sys.argv[1]])\n"
-            "rc = rc or main(['aln', '--device', 'cpu', '-o', sys.argv[3],"
-            " sys.argv[1], sys.argv[2]])\n"
+            "fa, fq, out, shard = sys.argv[1:]\n"
+            "aln = ['aln', '--device', 'cpu']\n"
+            "rc = main(['index', '-k', '13', fa])\n"
+            "rc = rc or main(aln + ['-o', out, fa, fq])\n"
+            "rc = rc or main(aln + ['-d', '2', '-o', out + '2', fa, fq])\n"
+            "rc = rc or main(aln + ['--batch-reads', '2', '--num-shards',"
+            " '2', '--shard-id', '1', '-o', shard, fa, fq])\n"
+            "rc = rc or main(aln + ['--resume', '-o', out, fa, fq])\n"
             "assert 'jax' not in sys.modules\n"
             f"assert not {NO_JAX_PACKAGE}, {NO_JAX_PACKAGE}\n"
             "sys.exit(rc)\n")
-    out = str(tmp_path / "o.sam")
-    r = _run(code, fa, fq, out)
+    r = _run(code, fa, fq, out, shard)
     assert r.returncode == 0, r.stderr
     recs = [ln for ln in open(out) if not ln.startswith("@")]
     assert len(recs) >= 4
     assert all(not int(ln.split("\t")[1]) & 4 for ln in recs)
-    # options whose machinery is not ported are refused
-    for extra in (["-d", "2"], ["--num-shards", "2", "-o", out],
-                  ["--resume", "-o", out]):
-        r = _run("import sys\nfrom lamsa_tpu_torch.cli import main\n"
-                 "sys.exit(main(sys.argv[1:]))\n", "aln", "--device", "cpu",
-                 *extra, fa, fq)
-        assert r.returncode == 2 and "not ported" in r.stderr, extra
+    no_pg = [[ln for ln in open(p) if not ln.startswith("@PG")]
+             for p in (out, out + "2")]
+    assert no_pg[0] == no_pg[1]
+    assert "resuming after 4 reads" in r.stderr
+    assert any(ln.startswith("@CO\tlamsa_tpu_shard:1/2") for ln in
+               open(shard))
 
 
 def test_cuda_requests_never_run_on_cpu():

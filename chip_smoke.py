@@ -4,6 +4,7 @@
     python3 chip_smoke.py             # one CUDA card, no arguments
     python3 chip_smoke.py --profile   # only the profile phase (below)
     python3 chip_smoke.py --tiles     # only the walkers' tile sizes (below)
+    python3 chip_smoke.py --wholegenome   # config 4 at 3.1 Gb (below)
 
 Phases (any failure exits non-zero without a result line):
   1. set-up: require CUDA, print the card's name and power limit
@@ -76,6 +77,17 @@ Phases (any failure exits non-zero without a result line):
      retry-sized batch of seed_hits_fm with seg_quota and the 1-edit
      tracks on cuda against the same call on the CPU (all four outputs
      equal; both times printed);
+  5b. coordinates past 2^31, without an index: reference words of
+     config 4's 3.1e9 random codes on the card, a chunk of 24 global gap
+     fills and 24 extensions (every other one reading its target
+     downward) at (512, 256) whose targets lie past 2^31
+     (ops/testing.py make_high_chunk; one starts 8 codes past the line,
+     so its band head reaches below it, one ends at the last code).
+     The t_base of every descriptor must survive unpack_desc on the
+     card, and the q / t windows and the compact wires of the row pair
+     (all 48) and the antidiagonal pair (the 24 globals) on the card
+     must equal the plain versions on the host copy of the words and on
+     the same targets placed at low coordinates;
   6. several devices, shards and validation on the card:
      a. the config-1 world (warm batch, then all 512 reads) through an
         Aligner over the mesh ["cuda:0", "cuda:0"] (two entries of one
@@ -105,6 +117,26 @@ library_ms null, e2e_ms) and the result line
 align_reads passes and one under torch.profiler (device busy share,
 busiest device entries); its last line is a JSON object {"profile": ...}.
 
+--wholegenome runs set-up and then config 4 whole: all 24 chromosomes
+of the genome of tools/wholegenome_bench.py (3.1 Gb, 8 N runs per
+chromosome, its SEED), FmIndex.build on the host (sa_rate 16; each build phase timed),
+AlignConfig(ScoreParams(), seed_step=10), 128 warm and 256 timed 10 kb
+reads of the tool's sample_reads through align_reads on the card with
+batch 128, then phase 5's 32 reads at 28% error under preset("ont").
+It checks k == 16, the seg quota on, some timed read past 2^31 (all its
+truth parts start there), all four kernels launched in the timed run,
+part_recall >= 0.99 on all timed reads and on those past 2^31, the
+adaptive re-seed fired at 28% error, no validate_batch finding on any
+read the card aligned, and SAM equal to the CPU path's on the first 8
+timed reads, on 8 more past 2^31 and on all 32 reads at 28% error. Every
+check runs before the mode fails on any. It prints genome and build
+seconds (per build phase), peak host RSS, resident device bytes and
+torch.cuda.max_memory_allocated, warm-batch seconds, timed reads/s, the
+stage shares, densified reads, launches, DP buckets and its elapsed
+seconds; its last line is a JSON object {"wholegenome": ...}. It took
+1419 s on an H100 host of 8 cores, the build 1217 s of it: give it
+--timeout 3600.
+
 --tiles rebuilds the kernels with each tile shape of TILE_VARIANTS for
 the two walkers (the committed shape first) and times both walkers at
 all 9 buckets on the phase-2 instances, at B = CHUNK_BY_M and on their
@@ -133,6 +165,8 @@ FM_N_CHROM = 2                      # of config-4's 24 chromosomes
 N_FM_WARM, N_FM_TIMED, FM_BATCH = 128, 256, 128
 N_HIGH_ERR = 32
 N_CLI_READS, CLI_BATCH = 48, 12     # phase 6c's world (4 batches)
+COORD_BUCKET, COORD_K = (512, 256), 24   # phase 5b's chunk
+WG_N_CHROM_RUN = 24                 # --wholegenome: all of config 4
 
 
 def fail(msg: str) -> None:
@@ -1266,6 +1300,291 @@ def phase_fm(dev, card):
                 hreads=hreads, ont=ont, out_h=out_h)
 
 
+def phase_coords(dev, scores):
+    """Phase 5b: reference coordinates past 2^31 through the window
+    gather and both DP pairs on the card (see the module docstring)."""
+    import torch
+
+    from lamsa_tpu_torch import worlds as wg
+    from lamsa_tpu_torch.ops.dp_chain import dp_tb_adiag_gather, \
+        dp_tb_gather
+    from lamsa_tpu_torch.ops.testing import SIGN_LINE, make_high_chunk
+    from lamsa_tpu_torch.ops.wire import gather_windows, unpack_desc
+
+    t0 = time.perf_counter()
+    M, W, K = COORD_BUCKET + (COORD_K,)
+    flat, patches, desc, low_ref, low_desc = make_high_chunk(
+        np.random.default_rng(20260821), wg.WG_GENOME_LEN, M, W, K)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20260821)
+    # random codes 0-3 in every nibble, then the instances' targets
+    words = torch.randint(0, 1 << 30, ((wg.WG_GENOME_LEN + 7) // 8,),
+                          dtype=torch.int32, device=dev, generator=gen)
+    words.bitwise_and_(0x33333333)
+    for w0, p in patches:
+        words[w0:w0 + len(p)] = torch.from_numpy(p).to(dev)
+    torch.cuda.synchronize()
+    words_cpu = words.cpu()
+    tb = desc[:, 1].view(np.uint32)
+    log(f"phase 5b: coordinates past 2^31 on the card: reference words of "
+        f"{wg.WG_GENOME_LEN} random codes ({words.nbytes} B on {dev}, made "
+        f"and copied to the host in {time.perf_counter() - t0:.1f} s); "
+        f"{K} global gap fills and {K} extensions at ({M}, {W}), t_base "
+        f"{int(tb.min())}..{int(tb.max())}")
+    if tb.min() < SIGN_LINE:
+        fail("phase 5b: a descriptor's t_base lies below 2^31")
+    sides = {"cuda": (torch.from_numpy(flat).to(dev), words,
+                      torch.from_numpy(desc).to(dev)),
+             "cpu": (torch.from_numpy(flat), words_cpu,
+                     torch.from_numpy(desc)),
+             "low": (torch.from_numpy(flat), torch.from_numpy(low_ref),
+                     torch.from_numpy(low_desc))}
+    got_tb = unpack_desc(sides["cuda"][2])[3].cpu().numpy()
+    if not np.array_equal(got_tb, tb.astype(np.int64)):
+        fail("phase 5b: unpack_desc on the card changed a t_base past 2^31")
+    wins = {}
+    for side, (fl, ref_w, d) in sides.items():
+        wins[side] = [x.cpu() for x in gather_windows(
+            fl, ref_w, *unpack_desc(d)[:8], M=M, W=W)]
+    for side in ("cpu", "low"):
+        for what, g, w_ in zip(("q", "t_win"), wins["cuda"], wins[side]):
+            if not torch.equal(g, w_):
+                fail(f"phase 5b: the {what} windows gathered on the card "
+                     f"differ from the {side} ones")
+    times, out = {}, {}
+    for side, (fl, ref_w, d) in sides.items():
+        for pair in ("row", "adiag"):
+            t1 = time.perf_counter()
+            if pair == "row":
+                wire = dp_tb_gather(fl, ref_w, d, M=M, W=W, scores=scores,
+                                    zdrop=scores.zdrop)
+            else:
+                wire = dp_tb_adiag_gather(fl, ref_w, d[:K].contiguous(),
+                                          M=M, W=W, scores=scores)
+            out[side, pair] = wire.cpu()
+            times[side, pair] = time.perf_counter() - t1
+    for pair in ("row", "adiag"):
+        for side in ("cpu", "low"):
+            if not torch.equal(out["cuda", pair], out[side, pair]):
+                bad = int((out["cuda", pair] != out[side, pair]).any(dim=1)
+                          .nonzero()[0])
+                fail(f"phase 5b: the {pair} pair's wire on the card differs "
+                     f"from the {side} plain path's, first at instance {bad}")
+    log(f"phase 5b ok in {time.perf_counter() - t0:.1f} s: q / t_win windows "
+        f"and the compact wires of the row pair ({2 * K} instances) and of "
+        f"the antidiagonal pair ({K} globals) on the card equal the plain "
+        f"versions on the host copy and on the same targets at low "
+        f"coordinates (plain path {times['cpu', 'row']:.1f} s + "
+        f"{times['cpu', 'adiag']:.1f} s)")
+
+
+class _Tee:
+    """A text stream that writes through to another and keeps each line
+    with the time it arrived."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, s):
+        self.out.write(s)
+        self.lines += [(time.perf_counter(), ln)
+                       for ln in s.splitlines() if ln.strip()]
+        return len(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def past_sign_line(ref, read):
+    """True when every truth part of a simulated read starts at or past
+    2^31 in the concatenated reference."""
+    from lamsa_tpu_torch import sim
+    offs = dict(zip(ref.names, np.asarray(ref.offsets).tolist()))
+    return all(offs[p.ref_name] + p.ref_start >= 1 << 31
+               for p in sim.parse_truth(read.name))
+
+
+def phase_wholegenome(dev, card, n_chrom=WG_N_CHROM_RUN):
+    """--wholegenome: config 4 end to end on the card (see the module
+    docstring). Every check runs and is reported before the mode fails
+    on any of them. Returns the numbers of its JSON line."""
+    import contextlib
+    import resource
+
+    import torch
+
+    from lamsa_tpu_torch import worlds as wg
+    from lamsa_tpu_torch.config import AlignConfig, ScoreParams, preset
+    from lamsa_tpu_torch.eval import evaluate
+    from lamsa_tpu_torch.index.fmindex import FmIndex
+    from lamsa_tpu_torch.io.samcheck import validate_batch
+    from lamsa_tpu_torch.pipeline.aln import Aligner, align_reads
+    from lamsa_tpu_torch.utils.timers import GLOBAL as STATS
+
+    failures = []
+
+    def check(ok, msg):
+        if not ok:
+            failures.append(msg)
+            log(f"CHECK FAILED: {msg}")
+
+    def rss():
+        return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+    nums = {"card": card, "n_chrom": n_chrom}
+    t0 = time.perf_counter()
+    ref = wholegenome_ref(n_chrom)
+    nums["genome_bp"] = int(ref.total_len)
+    nums["genome_s"] = time.perf_counter() - t0
+    log(f"whole genome: {ref.num_seqs} chromosomes of config 4, "
+        f"{ref.total_len} bp, {len(ref.amb_runs)} N runs, generated in "
+        f"{nums['genome_s']:.1f} s on {card}")
+    tee = _Tee(sys.stderr)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(tee):
+        fmi = FmIndex.build(ref.codes)
+    nums["fm_build_s"] = time.perf_counter() - t0
+    marks = [(t, ln.split("] ", 1)[1].rsplit(" (", 1)[0])
+             for t, ln in tee.lines if ln.startswith("[fmindex build]")]
+    nums["fm_build_phase_s"] = {
+        name: t - prev for (t, name), prev
+        in zip(marks, [t0] + [t for t, _ in marks[:-1]])}
+    nums["rss_after_build_B"] = rss()
+    log(f"FM index built on the host in {nums['fm_build_s']:.1f} s "
+        f"(sa_rate {fmi.sa_rate}; phases {nums['fm_build_phase_s']}); peak "
+        f"host RSS so far {nums['rss_after_build_B']} B on {card}")
+
+    cfg = AlignConfig(scores=ScoreParams(), seed_step=10)   # the tool's
+    reads = wg.sample_reads(ref, N_FM_WARM + N_FM_TIMED,
+                            np.random.default_rng(wg.WG_SEED + 1))
+    timed = reads[N_FM_WARM:]
+    past = [i for i, r in enumerate(timed) if past_sign_line(ref, r)]
+    nums["timed_reads_past_2^31"] = len(past)
+    log(f"{len(past)} of {len(timed)} timed reads lie past 2^31")
+    check(len(past) > 0, "no timed read lies past 2^31")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    aligner = Aligner(ref, fmi, cfg, device=dev)
+    st = aligner._state
+    fm_bytes = sum(t.nbytes for n, t in st.items() if n != "ref_words")
+    nums["device_state_s"] = time.perf_counter() - t0
+    nums["resident_B"] = {"fm": fm_bytes, "ref_words": st["ref_words"].nbytes}
+    log(f"device state in {nums['device_state_s']:.2f} s: FM tensors "
+        f"{fm_bytes} B + ref_words {st['ref_words'].nbytes} B on {card}; "
+        f"k={aligner.k}, sub1_k={aligner._sub1_k()}, seg quota "
+        f"{'on' if aligner._quota_on() else 'off'}")
+    check(aligner.k == 16, f"k = {aligner.k}, not 16")
+    check(aligner._quota_on(), "the seg quota is off")
+    t0 = time.perf_counter()
+    warm = aligner.align_batch(reads[:N_FM_WARM])
+    torch.cuda.synchronize()
+    nums["warm_batch_s"] = time.perf_counter() - t0
+
+    STATS.reset()
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    out = list(align_reads(ref, fmi, timed, cfg, batch_size=FM_BATCH,
+                           aligner=aligner))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    nums["launches"] = launches
+    nums["timed_reads_per_s"] = len(timed) / wall
+    nums["stage_s"] = {s: STATS.wall.get(s, 0.0) for s in (
+        "seed_hits", "chain_hits", "dp_batch", "skeleton_host",
+        "finalize_host")}
+    nums["stage_share"] = {s: v / wall for s, v in nums["stage_s"].items()}
+    nums["timed_densified_reads"] = STATS.counters.get(
+        "seed_densified_reads", 0)
+    nums["dp_buckets"] = {k[len("dp_instances_"):]: v
+                          for k, v in sorted(STATS.counters.items())
+                          if k.startswith("dp_instances_")}
+    log(f"timed: {len(timed)} reads in {wall:.3f} s = "
+        f"{nums['timed_reads_per_s']:.2f} reads/s (align_reads, batch "
+        f"{FM_BATCH}) on {card}; warm batch {nums['warm_batch_s']:.2f} s; "
+        f"stage shares {nums['stage_share']}; densified reads "
+        f"{nums['timed_densified_reads']}; launches {launches}")
+    log("stage breakdown (host seconds):\n" + STATS.report())
+    log_dp_buckets()
+    check(min(launches.values()) > 0,
+          f"a kernel was never launched in the timed run: {launches}")
+    ev = evaluate(out, timed)
+    ev_past = evaluate([out[i] for i in past], [timed[i] for i in past])
+    nums["part_recall"] = ev.part_recall
+    nums["read_accuracy"] = ev.read_accuracy
+    nums["part_recall_past_2^31"] = ev_past.part_recall
+    nums["read_accuracy_past_2^31"] = ev_past.read_accuracy
+    log(f"accuracy: part_recall={ev.part_recall:.4f} "
+        f"read_accuracy={ev.read_accuracy:.4f} ({ev.summary()}); past "
+        f"2^31: part_recall={ev_past.part_recall:.4f} "
+        f"read_accuracy={ev_past.read_accuracy:.4f} ({ev_past.summary()})")
+    check(ev.part_recall >= 0.99, f"part_recall {ev.part_recall:.4f} < 0.99")
+    check(ev_past.part_recall >= 0.99,
+          f"part_recall past 2^31 {ev_past.part_recall:.4f} < 0.99")
+
+    hreads = sample_window_reads(
+        ref, N_HIGH_ERR, np.random.default_rng(wg.WG_SEED + 2),
+        read_len=(1000, 3000), sub=0.15, ins=0.07, dele=0.06,
+        sv_fraction=0.2, prefix="e28_")
+    ont = preset("ont")
+    STATS.reset()
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    out_h = Aligner(ref, fmi, ont, device=dev).align_batch(hreads)
+    torch.cuda.synchronize()
+    nums["high_error_s"] = time.perf_counter() - t0
+    nums["high_error_densified_reads"] = STATS.counters.get(
+        "seed_densified_reads", 0)
+    ev_h = evaluate(out_h, hreads)
+    nums["high_error_part_recall"] = ev_h.part_recall
+    log(f"28% error (ont preset): {N_HIGH_ERR} reads in "
+        f"{nums['high_error_s']:.3f} s (incl. device state), "
+        f"seed_densified_reads={nums['high_error_densified_reads']}, "
+        f"launches {launch_counts()}, part_recall={ev_h.part_recall:.4f} "
+        f"read_accuracy={ev_h.read_accuracy:.4f} (printed, not gated)")
+    check(nums["high_error_densified_reads"] > 0,
+          "the adaptive re-seed never fired at 28% error")
+    nums["max_memory_allocated_B"] = torch.cuda.max_memory_allocated(dev)
+
+    t0 = time.perf_counter()
+    n_bad = 0
+    for what, o, rs in (("warm", warm, reads[:N_FM_WARM]),
+                        ("timed", out, timed), ("28% error", out_h, hreads)):
+        errs = validate_batch(o, ref)
+        n_bad += len(errs)
+        check(not errs, f"samcheck on the {what} reads: {len(errs)} "
+              f"findings, first: {errs[:1]}")
+    nums["validated_reads"] = N_FM_WARM + len(timed) + len(hreads)
+    log(f"validate_batch on all {nums['validated_reads']} reads the card "
+        f"aligned: {n_bad} findings ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    cpu = Aligner(ref, fmi, cfg, device="cpu")
+    first = list(range(N_SAM_CHECK_10KB))
+    high = [i for i in past if i >= N_SAM_CHECK_10KB][:N_SAM_CHECK_10KB]
+    for what, sel in (("the first timed reads", first),
+                      ("timed reads past 2^31", high)):
+        got = sam_lines([out[i] for i in sel])
+        want = sam_lines(cpu.align_batch([timed[i] for i in sel]))
+        check(got == want, f"SAM of {len(sel)} {what}: cuda != cpu")
+        log(f"SAM of {len(sel)} {what} ({len(got)} records): cuda "
+            f"{'=' if got == want else '!='} cpu")
+    got = sam_lines(out_h)
+    want = sam_lines(Aligner(ref, fmi, ont, device="cpu").align_batch(hreads))
+    check(got == want, f"SAM of all {N_HIGH_ERR} reads at 28% error: cuda "
+          f"!= cpu")
+    log(f"SAM of all {N_HIGH_ERR} reads at 28% error ({len(got)} records): "
+        f"cuda {'=' if got == want else '!='} cpu; the cpu path took "
+        f"{time.perf_counter() - t0:.1f} s")
+    nums["sam_checked_reads"] = len(first) + len(high) + N_HIGH_ERR
+    nums["peak_rss_B"] = rss()
+    if failures:
+        log("whole-genome numbers: " + json.dumps(nums))
+        fail(f"--wholegenome: {len(failures)} checks failed: {failures}")
+    return nums
+
+
 def mesh_run(aligner, reads, batch):
     """align_reads over a prepared (mesh) Aligner with the launch counts
     and the per-entry DP instance counters set to 0 just before and read
@@ -1756,6 +2075,11 @@ def main() -> int:
             if "registers" in ln or "spill" in ln or "Compiling" in ln:
                 log("ptxas: " + ln.strip())
 
+    if sys.argv[1:] == ["--wholegenome"]:
+        nums = phase_wholegenome(dev, card)
+        nums["elapsed_s"] = time.perf_counter() - t_start
+        print(json.dumps({"wholegenome": nums}), flush=True)
+        return 0
     if sys.argv[1:] == ["--profile"]:
         print(json.dumps({"profile": phase_profile(dev, card)}), flush=True)
         return 0
@@ -1780,6 +2104,7 @@ def main() -> int:
     launches, _rps, e2e_ms, out3 = phase_e2e(dev, card, world)
     out4 = phase_10kb(dev, card, world)
     fm = phase_fm(dev, card)
+    phase_coords(dev, scores)
     t6 = time.perf_counter()
     launches_mesh, outs6 = phase_mesh(card, world, out3, fm)
     phase_sharded(world)

@@ -291,6 +291,70 @@ def make_global_chunk(rng, M: int, W: int, K: int, Bp: int):
             desc)
 
 
+SIGN_LINE = 1 << 31             # reference positions from here set bit 31
+
+
+def _word_patch(pos: int, codes) -> tuple[int, np.ndarray]:
+    """(first word, int32 words) holding ``codes`` at reference position
+    ``pos``, N codes on the rest of the first and last words."""
+    w0 = pos >> 3
+    run = np.full(pos - 8 * w0, 4, np.uint8)
+    return w0, pack_codes_words(np.concatenate([run, codes]))
+
+
+def make_high_chunk(rng, genome_len: int, M: int, W: int, K: int):
+    """A chunk of K global gap fills (make_globals) and K end extensions
+    (make_zdrop_batch; every odd one leftward, reading its target
+    downward) whose targets lie past SIGN_LINE in a reference of
+    genome_len codes. The first global starts 8 codes past the line, so
+    its band head reaches below it, and the second ends at the
+    reference's last code. The same instances are also placed at low
+    coordinates, each at a slot of its own in a small reference.
+
+    Returns (flat, patches, desc, low_ref, low_desc): the packed read
+    words, the reference patches [(first word, int32 words)] to write
+    into genome-sized reference words (whatever else those hold is
+    outside every target), the (2K, 4) descriptor wire (globals first,
+    is_global set, extensions with bonus 5), the small reference's words
+    and the wire that reads the same targets from it."""
+    qg, twg, mg, ng, _ = make_globals(rng, K, M, W)
+    qe, twe, me, ne, loe, _ = make_zdrop_batch(rng, K, M, W)
+    targets = [twg[k][twg[k] != T_SENTINEL][:ng[k]] for k in range(K)]
+    targets += [twe[k][-int(loe[k]):-int(loe[k]) + ne[k]] for k in range(K)]
+    queries = [qg[k, :mg[k]] for k in range(K)] + \
+        [qe[k, :me[k]] for k in range(K)]
+    m = np.concatenate([mg, me]).astype(np.int64)
+    n = np.concatenate([ng, ne]).astype(np.int64)
+    ts = np.array([1] * K + [1 - 2 * (k % 2) for k in range(K)], np.int64)
+    span = -(-(M + W + 64) // 8) * 8
+    n_slots = (genome_len - SIGN_LINE) // span - 1
+    low = SIGN_LINE + span * (rng.choice(n_slots - 1, 2 * K, replace=False)
+                              + 1) + rng.integers(0, 8, 2 * K)
+    low[0] = SIGN_LINE + 8
+    low[1] = genome_len - n[1]
+    patches, low_patches, tb, low_tb = [], [], [], []
+    for i, t in enumerate(targets):
+        t = np.asarray(t, np.uint8)
+        ref_order = t if ts[i] > 0 else t[::-1]   # codes by ascending pos
+        patches.append(_word_patch(int(low[i]), ref_order))
+        low_pos = span * (i + 1) + int(low[i]) % 8
+        low_patches.append(_word_patch(low_pos, ref_order))
+        first = 0 if ts[i] > 0 else n[i] - 1      # t_base: gather index 0
+        tb.append(int(low[i]) + first)
+        low_tb.append(low_pos + first)
+    low_ref = np.zeros(span * (2 * K + 2) // 8, np.int32)
+    for w0, words in low_patches:
+        low_ref[w0:w0 + len(words)] = words
+    qb = np.concatenate([[0], np.cumsum(m)[:-1]])
+    glob = np.arange(2 * K) < K
+    lo = np.where(glob, global_lo(m, n, W), -(W // 2))
+    cols = (qb, np.ones(2 * K, np.int64), np.zeros(2 * K, np.int64))
+    rest = (ts, m, n, lo, glob, np.where(glob, 0, 5))
+    flat = pack_codes_words(np.concatenate(queries).astype(np.uint8))
+    return (flat, patches, pack_desc(*cols, np.array(tb), *rest), low_ref,
+            pack_desc(*cols, np.array(low_tb), *rest))
+
+
 def adiag_live(m_len, n_len, A4: int):
     """bool[B, A4, 1]: dirs32a words w with 4w < m + n (steps the
     instance computes; words above are unspecified)."""

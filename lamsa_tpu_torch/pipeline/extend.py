@@ -1,4 +1,4 @@
-"""Gap filling and end extension: the DP batcher, descriptor path.
+"""Gap filling and end extension: the DP batcher.
 
 Counterpart of ``lamsa_tpu/pipeline/extend.py``. Every gap and end
 instance of a batch is enqueued as a device-gather descriptor, bucketed
@@ -18,6 +18,12 @@ waits for them. With a mesh (parallel/mesh.py), each chunk's instances
 are split into contiguous ranges, one per entry; each range launches on
 its entry's device and sources, on a stream of its own that first waits
 for the uploads, and its collect waits for that stream's work.
+
+The content API (``add_global`` / ``add_extend``, the JAX package's
+signatures) takes the query and target codes themselves: they are
+staged into a flat query and a flat target source of the batcher's own,
+uploaded once at ``run``, and enqueued as descriptors into them, so
+they ride the same chunks and kernels as the descriptor path.
 """
 
 from __future__ import annotations
@@ -33,8 +39,8 @@ from lamsa_tpu_torch.io.sam import OP_D, OP_I, OP_M, cigar_pairs
 from lamsa_tpu_torch.utils.timers import GLOBAL as STATS
 from lamsa_tpu_torch.ops.dp_chain import dp_tb_adiag_gather, dp_tb_gather
 from lamsa_tpu_torch.ops.wire import a_pad, collect_group, global_lo, \
-    pack_desc
-from lamsa_tpu_torch.parallel.mesh import row_blocks
+    pack_codes_words, pack_desc
+from lamsa_tpu_torch.parallel.mesh import distinct, row_blocks
 
 # (max query length, band width) buckets; instances pick the first
 # bucket that fits (lamsa_tpu/pipeline/extend.py BUCKETS).
@@ -145,16 +151,19 @@ class DpBatcher:
     read codes and the reference, resident on the device the chunks run
     on; with a mesh, one such pair per entry. host_sources — the same
     codes as host arrays (flat_read_codes, ref_codes), for the rare host
-    recompute. mesh — device entries the instances of each chunk are
-    split over (None: one device)."""
+    recompute. Both are needed by the descriptor enqueues only. mesh —
+    device entries the instances of each chunk are split over (None: one
+    device). device — where the content API's chunks run when there are
+    no device_sources (else on theirs)."""
 
-    def __init__(self, scores, device_sources, host_sources,
+    def __init__(self, scores, device_sources=None, host_sources=None,
                  min_band: int = 0, inflight_budget: int | None = None,
-                 mesh=None):
+                 mesh=None, device="cuda"):
         self.scores = scores
         self.device_sources = device_sources
         self.host_sources = host_sources
         self.mesh = mesh
+        self.device = device
         self.streams = {}               # mesh entry -> its CUDA stream
         # device bytes chunks may hold between launch and collect
         # (None = unlimited); shared across concurrent batchers
@@ -167,11 +176,17 @@ class DpBatcher:
         # descriptor instances, stored columnar
         self._bulk: list[dict] = []       # record batches of np columns
         self._scal: dict | None = None    # per-column lists (scalar adds)
+        # the content API's staged codes, and their sources once run()
+        # has uploaded them
+        self._staged: tuple[list, list] = ([], [])
+        self._staged_len = [0, 0]
+        self._content = None
 
     # ------------------------------------------------------------ enqueue
 
+    # src: 0 = the batcher's sources, 1 = the staged contents
     _COLS = ("idx", "m", "n", "qb", "qs", "qc", "tb", "ts", "glob",
-             "bonus", "minw")
+             "bonus", "minw", "src")
 
     def _trivial(self, h0, m, n, kind):
         """Resolve zero-length instances immediately. Returns bool[K]
@@ -219,7 +234,21 @@ class DpBatcher:
                 "bonus": np.zeros(len(ki), np.int64),
                 "minw": (np.zeros(len(ki), np.int64) if minw is None
                          else np.asarray(minw, np.int64)[ki]),
+                "src": np.zeros(len(ki), np.int64),
             })
+        return h0
+
+    def _add_one(self, kind, m, n, qd, td, bonus=0, minw=0, src=0) -> int:
+        """Enqueue one instance from scalar columns; returns its handle."""
+        h0 = len(self._results)
+        self._results.append(None)
+        if self._trivial(h0, np.array([m]), np.array([n]), kind)[0]:
+            return h0
+        if self._scal is None:
+            self._scal = {c: [] for c in self._COLS}
+        for col, v in zip(self._COLS, (h0, m, n, *qd, *td, kind == "global",
+                                       bonus, minw, src)):
+            self._scal[col].append(v)
         return h0
 
     def add_extend_desc(self, m: int, n: int, to_end_bonus: int, qd,
@@ -227,29 +256,64 @@ class DpBatcher:
         """Enqueue one end extension: qd = (q_base, q_step, q_comp) and
         td = (t_base, t_step) device-gather descriptors. Returns its
         handle."""
-        h0 = len(self._results)
-        self._results.append(None)
-        if self._trivial(h0, np.array([m]), np.array([n]), "extend")[0]:
-            return h0
-        if self._scal is None:
-            self._scal = {c: [] for c in self._COLS}
-        s = self._scal
-        s["idx"].append(h0)
-        s["m"].append(m)
-        s["n"].append(n)
-        s["qb"].append(qd[0])
-        s["qs"].append(qd[1])
-        s["qc"].append(qd[2])
-        s["tb"].append(td[0])
-        s["ts"].append(td[1])
-        s["glob"].append(False)
-        s["bonus"].append(to_end_bonus)
-        s["minw"].append(0)
-        return h0
+        return self._add_one("extend", m, n, qd, td, bonus=to_end_bonus)
+
+    def _add_content(self, kind, q, t, qd, td, **kw) -> int:
+        """Enqueue q vs t: as the descriptors (qd, td) into the batcher's
+        sources where both are given and it has device sources, else as
+        descriptors into the staged contents."""
+        if qd is not None and td is not None \
+                and self.device_sources is not None:
+            return self._add_one(kind, len(q), len(t), qd, td, **kw)
+        offs = list(self._staged_len)
+        if len(q) and len(t):       # zero-length instances resolve at once
+            for side, codes in enumerate((q, t)):
+                self._staged[side].append(np.asarray(codes, np.uint8))
+                self._staged_len[side] += len(codes)
+        return self._add_one(kind, len(q), len(t), (offs[0], 1, 0),
+                             (offs[1], 1), src=1, **kw)
+
+    def add_global(self, q: np.ndarray, t: np.ndarray, qd=None, td=None,
+                   minw: int = 0) -> int:
+        """Global alignment of q vs t (both fully consumed); minw is the
+        least band width the instance may route to. Returns its handle
+        (lamsa_tpu/pipeline/extend.py DpBatcher.add_global)."""
+        return self._add_content("global", q, t, qd, td, minw=minw)
+
+    def add_extend(self, q: np.ndarray, t: np.ndarray, to_end_bonus: int,
+                   qd=None, td=None) -> int:
+        """Extension from (0, 0) into q / t with the soft-clip decision:
+        all of q is consumed iff the to-end score >= best - to_end_bonus.
+        Returns its handle (lamsa_tpu/pipeline/extend.py
+        DpBatcher.add_extend)."""
+        return self._add_content("extend", q, t, qd, td, bonus=to_end_bonus)
+
+    def _upload_staged(self):
+        """Pack the staged contents into code words on the device(s) the
+        chunks run on (once per distinct device under a mesh)."""
+        host = tuple(np.concatenate(parts) if parts
+                     else np.zeros(0, np.uint8) for parts in self._staged)
+        words = [torch.from_numpy(pack_codes_words(h)) for h in host]
+        if self.mesh is not None:
+            per = {d: tuple(w.to(d) for w in words)
+                   for d in distinct(self.mesh)}
+            dev_src = [per[d] for d in self.mesh]
+        else:
+            dev = self.device_sources[0].device if self.device_sources \
+                else self.device
+            dev_src = tuple(w.to(dev) for w in words)
+        self._content = (dev_src, host)
+        self._staged = ([], [])
+        self._staged_len = [0, 0]
+
+    def _sources(self, src):
+        """(device sources, host sources) of source set src."""
+        return (self.device_sources, self.host_sources) if src == 0 \
+            else self._content
 
     def _materialize(self, c, i):
         """q/t content of columnar instance i (host recompute path)."""
-        flat, refc = self.host_sources
+        flat, refc = self._sources(int(c["src"][i]))[1]
         m, n = int(c["m"][i]), int(c["n"][i])
         y = int(c["qb"][i]) + int(c["qs"][i]) * np.arange(m)
         q = flat[y].astype(np.uint8)
@@ -302,6 +366,8 @@ class DpBatcher:
 
     def run(self) -> None:
         futs = []
+        if self._staged_len != [0, 0]:
+            self._upload_staged()
         c = self._merged_cols()
         if c is not None:
             m, n, glob = c["m"], c["n"], c["glob"]
@@ -336,6 +402,9 @@ class DpBatcher:
                     parts = [(sel[gsel], True), (sel[~gsel], False)]
                 else:
                     parts = [(sel, False)]
+                # a chunk reads one source set
+                parts = [(p[c["src"][p] == s], adiag) for p, adiag in parts
+                         for s in (0, 1)]
                 chunk = CHUNK_BY_M[(M, W)]
                 for psel, adiag in parts:
                     for c0 in range(0, len(psel), chunk):
@@ -367,15 +436,16 @@ class DpBatcher:
         STATS.count(f"dp_instances_{M}x{W}", K)
         if adiag:
             STATS.count("dp_adiag_instances", K)
+        dev_src = self._sources(int(sl["src"][0]))[0]
         with STATS.stage(f"dp_dispatch_{M}x{W}"):
             if self.mesh is None:
-                flat_dev, ref_dev = self.device_sources
+                flat_dev, ref_dev = dev_src
                 wire = self._chunk(flat_dev, ref_dev,
                                    torch.from_numpy(desc).to(flat_dev.device),
                                    M, W, adiag)
                 parts = [(0, K, wire, None)]
             else:
-                parts = self._dispatch_split(desc, M, W, adiag)
+                parts = self._dispatch_split(dev_src, desc, M, W, adiag)
         return sl, M, W, parts, adiag
 
     def _chunk(self, flat_dev, ref_dev, desc_dev, M, W, adiag):
@@ -385,7 +455,7 @@ class DpBatcher:
         return dp_tb_gather(flat_dev, ref_dev, desc_dev, M=M, W=W,
                             scores=self.scores, zdrop=self.scores.zdrop)
 
-    def _dispatch_split(self, desc, M, W, adiag):
+    def _dispatch_split(self, dev_src, desc, M, W, adiag):
         """One chunk's instances in contiguous ranges over the mesh. A
         CUDA range runs on its entry's stream after the uploads on the
         device's current stream; its inputs are marked in use by that
@@ -396,7 +466,7 @@ class DpBatcher:
             if a == b:
                 continue
             STATS.count(f"dp_instances_entry{e}", b - a)
-            flat_dev, ref_dev = self.device_sources[e]
+            flat_dev, ref_dev = dev_src[e]
             desc_dev = torch.from_numpy(desc[a:b]).to(dev)
             if dev.type != "cuda":
                 parts.append((a, b, self._chunk(flat_dev, ref_dev, desc_dev,

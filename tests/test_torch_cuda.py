@@ -175,6 +175,35 @@ def test_dp_batcher_two_entries_on_one_card(dev):
     assert torch.cuda.current_stream(dev) not in b.streams.values()
 
 
+def test_dp_batcher_content_api_on_the_card(dev):
+    """add_global / add_extend with the codes themselves: on the card
+    the staged contents ride all four kernels, and every result equals
+    the same batcher's on the CPU (the plain versions)."""
+    from lamsa_tpu_torch.ops import (banded_sw_adiag, banded_sw_row,
+                                     traceback_adiag, traceback_row)
+    from lamsa_tpu_torch.pipeline.extend import DpBatcher
+    mods = (banded_sw_row, traceback_row, banded_sw_adiag, traceback_adiag)
+    out = {}
+    for d in (dev, "cpu"):
+        rng = np.random.default_rng(12)
+        b = DpBatcher(S, device=d)
+        hs = []
+        for m in rng.integers(1, 900, 120):
+            t = rng.integers(0, 5, int(m) + 30)
+            q = t[:m].copy()
+            mut = rng.random(len(q)) < 0.05
+            q[mut] = rng.integers(0, 4, int(mut.sum()))
+            n = max(int(m) + int(rng.integers(-25, 30)), 0)
+            hs += [b.add_global(q, t[:n]), b.add_extend(q, t, 5)]
+        n0 = [m.LAUNCHES for m in mods]
+        b.run()
+        launched = [m.LAUNCHES - n for m, n in zip(mods, n0)]
+        out[d] = [(r.score, r.cigar.tobytes(), r.q_used, r.t_used)
+                  for r in map(b.result, hs)]
+        assert min(launched) > 0 if d == dev else max(launched) == 0
+    assert out[dev] == out["cpu"]
+
+
 @pytest.mark.parametrize("B", [1, 37])
 @pytest.mark.parametrize("M,W", [(5120, 256), (128, 128)])
 def test_dp_kernels_small_chunks_and_thread_edges(dev, M, W, B):

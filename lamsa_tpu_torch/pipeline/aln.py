@@ -22,6 +22,12 @@ hand-written kernels; on ``cpu`` the same code runs their plain torch
 versions. Nothing moves to another device on failure. The host methods
 (skeleton, part enqueue, finalize, MAPQ) are copies of the JAX
 package's: its module imports jax, so it cannot be imported here.
+
+Every host wait of a batch is on the stream its caller runs it on, or
+on an event recorded there, never on the whole device; the tensors that
+every batch reads (the resident state, the qpos grids) are complete
+before any stream can see them. So ``align_batch`` gives the same
+records on whichever stream, and from whichever thread, it is called.
 """
 
 from __future__ import annotations
@@ -197,9 +203,14 @@ class Aligner:
         else:
             self.seed_backend = "kmer"
             self.k = index.k
-        # index and reference tensors, once per distinct device
+        # index and reference tensors, once per distinct device; the
+        # host waits for their upload here, so a batch's stream can
+        # never read them before it has landed
         self._states = {dev: device_state(ref, index, dev)
                         for dev in distinct(self.entries)}
+        for dev in self._states:
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
         self._state = self._states[self.device]
         self._grids = {}
         self._inflight_budget = self._compute_inflight_budget() \
@@ -351,8 +362,9 @@ class Aligner:
                     sub1_k=self._sub1_k() if sub1 else 0,
                     sub1_kinds=cfg.seed_1edit_kinds, **kw)
             if dev.type == "cuda":
-                # the stage's seconds are the device's, not the enqueue's
-                torch.cuda.synchronize(dev)
+                # the stage's seconds are the device's, not the enqueue's;
+                # only this batch's stream is waited on
+                torch.cuda.current_stream(dev).synchronize()
         return _pack_hits_chain(
             hits, weight=common["weight"], lookback=common["lookback"],
             max_dist=common["max_dist"],
@@ -544,11 +556,15 @@ class Aligner:
 
     def _grid(self, L, step, dev):
         """qpos sample grid per (bucket length, step), cached on each
-        device."""
+        device; an entry is published only after its upload completed,
+        since a batch on another stream may read it next."""
         key = (L, step, dev)
         if key not in self._grids:
-            self._grids[key] = torch.from_numpy(
+            grid = torch.from_numpy(
                 make_qpos_grid(L, self.k, step).astype(np.int64)).to(dev)
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+            self._grids[key] = grid
         return self._grids[key]
 
     def _build_skeleton(self, h, gi, read_len):
@@ -858,14 +874,26 @@ class Aligner:
 def align_reads(ref: PackedReference, index: KmerIndex | FmIndex, reads,
                 config: AlignConfig | None = None,
                 batch_size: int | None = None,
+                pipeline: int | None = None,
                 aligner: "Aligner | None" = None,
                 device="cuda", mesh=None):
     """Align an iterable of reads, yielding SAM record lists per read in
     input order, one batch at a time.
 
+    pipeline — the JAX package's batches in flight, accepted for its
+    callers; the port runs its batches in order at every depth (the
+    records are the same at every depth). Batches in flight on a worker
+    thread and a CUDA stream each were slower than one at every depth
+    tried (``chip_smoke.py --profile``, PERF.md section 6): on an NVIDIA
+    H100 80GB HBM3 at 700.00 W, median reads/s at depths 1 / 2 / 3 were
+    51.78 / 29.58 / 17.05 (config-1, batch 64), 227.36 / 116.84 / 98.72
+    (batch 256), 374.52 / 158.81 / 170.84 (10 kb reads) and 122.64 /
+    85.43 / 77.28 (FM world).
+
     aligner — reuse a prepared Aligner (keeps the device state); its
     device or mesh then decides. mesh — device entries for data
     parallelism (Aligner)."""
+    del pipeline
     cfg = config or AlignConfig()
     aligner = aligner or Aligner(ref, index, cfg, device=device, mesh=mesh)
     bs = batch_size or cfg.batch_reads

@@ -13,11 +13,13 @@ Each chunk's compact wire is decoded natively on a small collect pool
 overflowed are recomputed on the host with ``native.banded_sw_tb``.
 
 Chunks are launched unpadded (eager torch has no compile signatures to
-keep closed) on the current CUDA stream; the collect thread's ``.cpu()``
-waits for them. With a mesh (parallel/mesh.py), each chunk's instances
-are split into contiguous ranges, one per entry; each range launches on
-its entry's device and sources, on a stream of its own that first waits
-for the uploads, and its collect waits for that stream's work.
+keep closed) on the current CUDA stream, and an event recorded there
+after each CUDA chunk is what its collect waits on: the collect thread's
+own current stream is not the one that launched the chunk, and nothing
+else orders its copy after the kernels. With a mesh (parallel/mesh.py),
+each chunk's instances are split into contiguous ranges, one per entry;
+each range launches on its entry's device and sources, on a stream of
+its own that first waits for the uploads, with an event of its own.
 
 The content API (``add_global`` / ``add_extend``, the JAX package's
 signatures) takes the query and target codes themselves: they are
@@ -87,8 +89,11 @@ def _run(op: int, ln: int) -> np.ndarray:
 # copy + native compact decode + rare host recompute) runs on a small
 # shared thread pool, and dispatch blocks while the estimated device
 # workspace of chunks in flight would exceed the Aligner's budget.
-# Deadlock-free: waiters are dispatchers, releasers are collectors of
-# already-launched chunks, and the first chunk is always admitted.
+# Deadlock-free, also with several batchers on threads of their own:
+# waiters are dispatchers, releasers are collectors of
+# already-launched chunks, a collect waits only on its own chunk's event
+# and never on the budget, and a chunk is always admitted when nothing
+# is out. The budget bounds the bytes of all batchers' chunks together.
 
 _COLLECT_WORKERS = 4
 
@@ -133,6 +138,16 @@ def _collect_pool():
                 _POOL = concurrent.futures.ThreadPoolExecutor(
                     _COLLECT_WORKERS, thread_name_prefix="dp-collect")
     return _POOL
+
+
+def _done_event(dev):
+    """An event recorded on dev's current stream after a chunk's launches
+    (None off CUDA, where the chunk has run when the call returns)."""
+    if dev.type != "cuda":
+        return None
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(dev))
+    return done
 
 
 @dataclasses.dataclass
@@ -443,7 +458,7 @@ class DpBatcher:
                 wire = self._chunk(flat_dev, ref_dev,
                                    torch.from_numpy(desc).to(flat_dev.device),
                                    M, W, adiag)
-                parts = [(0, K, wire, None)]
+                parts = [(0, K, wire, _done_event(wire.device))]
             else:
                 parts = self._dispatch_split(dev_src, desc, M, W, adiag)
         return sl, M, W, parts, adiag
@@ -480,8 +495,7 @@ class DpBatcher:
                 with torch.cuda.stream(s):
                     wire = self._chunk(flat_dev, ref_dev, desc_dev, M, W,
                                        adiag)
-                    done = torch.cuda.Event()
-                    done.record(s)
+                    done = _done_event(dev)
                 for t in (flat_dev, ref_dev, desc_dev):
                     t.record_stream(s)
             parts.append((a, b, wire, done))
@@ -493,6 +507,9 @@ class DpBatcher:
         for a, b, wire, done in parts:
             if done is not None:
                 done.synchronize()
+            elif wire.device.type == "cuda":
+                raise RuntimeError("a CUDA chunk reached the collect "
+                                   "without the event of its stream")
             with STATS.stage(f"dp_collect_{M}x{W}"):
                 cigars, score, si, sd = collect_group(wire, M, topdown)
             K = b - a

@@ -424,3 +424,101 @@ def test_seed_hits_fm_cuda_matches_cpu(dev, fm_world, extra):
     for n in ("qpos", "rpos", "strand", "valid"):
         assert torch.equal(outs[0][n], outs[1][n]), n
     assert outs[1]["valid"].sum() > 0
+
+
+@pytest.fixture(scope="module")
+def config1_like():
+    """config-1's read profile (1-5 kb, 1% sub / 5% ins / 4% del, 15% SV
+    reads, k = 13, seed step 10) on a 400 kb genome: 48 reads."""
+    from lamsa_tpu_torch import sim
+    from lamsa_tpu_torch.config import AlignConfig
+    from lamsa_tpu_torch.index.kmer import KmerIndex
+    from lamsa_tpu_torch.io.fasta import encode_seq
+    from lamsa_tpu_torch.io.refpack import PackedReference
+    rng = np.random.default_rng(20261017)
+    genome = sim.random_genome(rng, 400_000)
+    codes = np.frombuffer(encode_seq(genome[0].seq), np.uint8)
+    ref = PackedReference(names=[genome[0].name],
+                          offsets=np.array([0, len(codes)], np.int64),
+                          codes=codes, amb_runs=np.zeros((0, 2), np.int64))
+    reads = sim.simulate_reads(rng, genome, 48, read_len=(1000, 5000),
+                               sub=0.01, ins=0.05, dele=0.04,
+                               sv_fraction=0.15)
+    return ref, KmerIndex.build(codes, 13), AlignConfig(
+        scores=S, seed_step=10), reads
+
+
+@pytest.mark.parametrize("depth", [2, 3])
+@pytest.mark.parametrize("entries", [None, ["cuda:0", "cuda:0"]],
+                         ids=["one", "mesh2"])
+def test_batches_on_side_streams_equal_one_stream_on_the_card(
+        dev, config1_like, entries, depth):
+    """align_batch run by `depth` worker threads at once, each batch on
+    a CUDA stream of its own, gives align_reads' records read for read,
+    with one entry and over two entries of the card, and every kernel
+    launches in each run."""
+    import concurrent.futures as cf
+
+    from lamsa_tpu_torch.io.sam import format_sam_record
+    from lamsa_tpu_torch.ops import (banded_sw_adiag, banded_sw_row,
+                                     traceback_adiag, traceback_row)
+    from lamsa_tpu_torch.pipeline.aln import Aligner, align_reads
+    mods = (banded_sw_row, traceback_row, banded_sw_adiag, traceback_adiag)
+    ref, idx, cfg, reads = config1_like
+    aligner = Aligner(ref, idx, cfg, device=dev, mesh=entries)
+
+    def sam(out):
+        return [[format_sam_record(r) for r in recs] for recs in out]
+
+    def on_stream(batch):
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            return aligner.align_batch(batch)
+
+    want = sam(align_reads(ref, idx, reads, cfg, batch_size=12,
+                           aligner=aligner))
+    n0 = [m.LAUNCHES for m in mods]
+    with cf.ThreadPoolExecutor(depth) as ex:
+        got = sam(recs for out in ex.map(
+            on_stream, [reads[i:i + 12] for i in range(0, len(reads), 12)])
+            for recs in out)
+    torch.cuda.synchronize()
+    assert min(m.LAUNCHES - n for m, n in zip(mods, n0)) > 0
+    assert len(want) == len(reads)
+    assert got == want
+
+
+def test_cuda_chunk_collect_waits_on_its_event(dev, monkeypatch):
+    """A DpBatcher run on a side stream, each chunk's kernels queued
+    behind a spin of ~25 ms on that stream: each CUDA chunk must reach
+    its collect (on the collect pool, whose current stream is another)
+    with an event of the stream that launched it, and the results must
+    equal the CPU run's; a copy that did not wait for the kernels would
+    read the wire before they wrote it. A chunk without an event is
+    refused at the collect."""
+    from lamsa_tpu_torch.pipeline import extend
+    seen = []
+    real_collect = extend.DpBatcher._collect
+    real_chunk = extend.DpBatcher._chunk
+
+    def collect(self, sl, M, W, parts, topdown=False):
+        seen.extend(done for *_, done in parts)
+        return real_collect(self, sl, M, W, parts, topdown)
+
+    def chunk(self, flat_dev, *a, **k):
+        if flat_dev.device.type == "cuda":
+            torch.cuda._sleep(50_000_000)
+        return real_chunk(self, flat_dev, *a, **k)
+
+    monkeypatch.setattr(extend.DpBatcher, "_collect", collect)
+    monkeypatch.setattr(extend.DpBatcher, "_chunk", chunk)
+    _, want = _batcher_results(None, torch.device("cpu"))
+    seen.clear()
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        _, got = _batcher_results(None, dev)
+    assert seen and all(isinstance(d, torch.cuda.Event) for d in seen)
+    assert got == want
+    b = extend.DpBatcher(S)
+    wire = torch.zeros((1, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="without the event"):
+        real_collect(b, {}, 128, 128, [(0, 1, wire, None)])

@@ -128,3 +128,20 @@ def test_align_reads_equals_align_batch():
     streamed = _sam(align_reads(ref, idx, reads, cfg, batch_size=5,
                                 aligner=aligner))
     assert streamed == whole
+
+
+def test_hifi_preset_sam_identical():
+    """preset("hifi") (the default scores and seeding) end to end:
+    low-error reads (0.2% sub / 0.3% ins / 0.3% del) and SV reads."""
+    rng = np.random.default_rng(7)
+    genome, ref, idx = make_ref(rng, 100000)
+    low = sim.simulate_reads(rng, genome, 12, read_len=(1000, 3000),
+                             sub=0.002, ins=0.003, dele=0.003,
+                             name_prefix="hifi")
+    sv = sim.simulate_reads(rng, genome, 10, read_len=(1500, 3000),
+                            sub=0.002, ins=0.003, dele=0.003,
+                            sv_fraction=1.0, name_prefix="hifisv")
+    cfg = preset("hifi")
+    _same_sam(ref, idx, cfg, low)
+    sam = _same_sam(ref, idx, cfg, sv)
+    assert sum("SA:Z:" in s for s in sam) >= 4      # split alignments

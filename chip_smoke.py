@@ -5,6 +5,7 @@
     python3 chip_smoke.py --profile   # only the profile phase (below)
     python3 chip_smoke.py --tiles     # only the walkers' tile sizes (below)
     python3 chip_smoke.py --wholegenome   # config 4 at 3.1 Gb (below)
+    python3 chip_smoke.py --cards     # several cards only (below)
 
 Phases (any failure exits non-zero without a result line):
   1. set-up: require CUDA, print the card's name and power limit
@@ -102,18 +103,36 @@ Phases (any failure exits non-zero without a result line):
         instances per entry and reads/s printed; then the same reads at
         batch 128 through in_flight (three batches at once) over that
         mesh, SAM equal to phase 3's; with more than one card also
-        ["cuda:0", "cuda:1"]; then phase 5's timed FM reads
+        ["cuda:0", "cuda:1"] (two real cards, reads/s beside phase 3's
+        one entry); then phase 5's timed FM reads
         and its 28%-error set over two entries, on phase 5's index, SAM
         equal to phase 5's;
-     b. seed_hits_sharded over 2 and 4 entries on the config-1 reads
-        equal to seed_hits; index bytes per shard printed;
+     b. seed_hits_sharded over 2 and 4 entries of card 0 and, with more
+        than one card, over ["cuda:0", "cuda:1"] and over every card, on
+        the config-1 reads, equal to seed_hits; index bytes per shard
+        printed;
      c. the CLI with --device cuda on a 48-read world in a temporary
         directory: two shards merged, a simulated kill + --resume and
-        -d 0 each equal one unbroken -d 1 run byte for byte;
+        -d 0 (every card) each equal one unbroken -d 1 run byte for
+        byte; with more than one card, --device cuda:1 -d 1 too;
      d. validate_batch (io/samcheck.py) on every read the card aligned
         in phases 3-6a: no finding;
-     e. full_align_step over two entries of the card, replicated and
-        sharded index, equal to the plain CPU run.
+     e. several cards, only when torch.cuda.device_count() >= 2 (else
+        it logs "phase 6e: skipped, 1 card"): config-1 (batch 256)
+        through Aligner(device="cuda:1") with SAM equal to phase 3's on
+        all 512 reads, every kernel launched (counts set to 0 just
+        before), something allocated on cuda:1 and card 0's peak
+        allocation not raised; phase 5's 256 timed FM reads on cuda:1,
+        SAM equal to phase 5's; then one `python -m lamsa_tpu_torch.cli
+        aln --device cuda:i --num-shards N --shard-id i` process per
+        card (N = device_count(), all at once, batch 128) on the config-1
+        world written to a temporary directory, merged with `merge`: the
+        merged file equals one process's on cuda:0 byte for byte apart
+        from the @PG command line; the wall of the N processes and of
+        one is printed. Every check runs before the phase fails;
+     f. full_align_step over two entries of card 0 and, with more than
+        one card, over ["cuda:0", "cuda:1"], replicated and sharded
+        index, equal to the plain CPU run.
 The script imports nothing of JAX, of the JAX package, of bench.py or of
 tools/, and fails if any of them was loaded. The last two lines are a
 JSON summary of the kernels (per kernel: launches, max_abs_err, ms and
@@ -154,6 +173,11 @@ seconds; its last line is a JSON object {"wholegenome": ...}. It took
 1419 s on an H100 host of 8 cores, the build 1217 s of it: give it
 --timeout 3600.
 
+--cards (more than one card) runs set-up and then only what the
+several-card phases are compared with: phases 3 and 5, then phase 6
+(a-f); its last line is a JSON object {"cards": ...} with phase 6e's
+numbers and the two-card mesh's of 6a.
+
 --tiles rebuilds the kernels with each tile shape of TILE_VARIANTS for
 the two walkers (the committed shape first) and times both walkers at
 all 9 buckets on the phase-2 instances, at B = CHUNK_BY_M and on their
@@ -185,6 +209,7 @@ FM_N_CHROM = 2                      # of config-4's 24 chromosomes
 N_FM_WARM, N_FM_TIMED, FM_BATCH = 128, 256, 128
 N_HIGH_ERR = 32
 N_CLI_READS, CLI_BATCH = 48, 12     # phase 6c's world (4 batches)
+SHARD_BATCH = 128                   # phase 6e's shard processes (4 batches)
 COORD_BUCKET, COORD_K = (512, 256), 24   # phase 5b's chunk
 WG_N_CHROM_RUN = 24                 # --wholegenome: all of config 4
 DEPTHS, N_DEPTH_PASSES = (1, 2, 3), 3   # batches at once (in_flight)
@@ -1505,7 +1530,7 @@ def phase_fm(dev, card):
         f"retry grid, seg_quota {kw['seg_quota']}, sub1_k {k1}: cuda = cpu "
         f"on all four outputs ({int(want['valid'].sum())} valid hits); "
         f"{ms:.2f} ms on the card, {cpu_ms:.1f} ms on the host cpu")
-    return dict(ref=ref, fmi=fmi, cfg=cfg, timed=timed, out=out,
+    return dict(ref=ref, fmi=fmi, cfg=cfg, timed=timed, out=out, rps=rps,
                 hreads=hreads, ont=ont, out_h=out_h, aligner=aligner)
 
 
@@ -1794,12 +1819,19 @@ def phase_wholegenome(dev, card, n_chrom=WG_N_CHROM_RUN):
     return nums
 
 
+def sync(aligner):
+    """Wait for every card an Aligner's entries run on."""
+    import torch
+
+    from lamsa_tpu_torch.parallel.mesh import distinct
+    for d in distinct(aligner.entries):
+        torch.cuda.synchronize(d)
+
+
 def mesh_run(aligner, reads, batch):
     """align_reads over a prepared (mesh) Aligner with the launch counts
     and the per-entry DP instance counters set to 0 just before and read
     just after. Returns (out, wall s, launches, instances per entry)."""
-    import torch
-
     from lamsa_tpu_torch.pipeline.aln import align_reads
     from lamsa_tpu_torch.utils.timers import GLOBAL as STATS
 
@@ -1809,7 +1841,7 @@ def mesh_run(aligner, reads, batch):
     out = list(align_reads(aligner.ref, aligner.index, reads,
                            aligner.config, batch_size=batch,
                            aligner=aligner))
-    torch.cuda.synchronize()
+    sync(aligner)
     wall = time.perf_counter() - t0
     per_entry = {k[len("dp_instances_"):]: v
                  for k, v in sorted(STATS.counters.items())
@@ -1817,11 +1849,13 @@ def mesh_run(aligner, reads, batch):
     return out, wall, launch_counts(), per_entry
 
 
-def phase_mesh(card, world, out3, fm):
+def phase_mesh(card, world, out3, rps3, fm):
     """Phase 6a: the config-1 world and the FM world's reads through an
-    Aligner over two entries of one card; SAM must equal the one-entry
-    runs of phases 3 and 5. Returns the config-1 run's launches and its
-    outputs."""
+    Aligner over two entries of one card, and with more than one card
+    over ["cuda:0", "cuda:1"]; SAM must equal the one-entry runs of
+    phases 3 and 5. Returns the config-1 run's launches over two entries
+    of card 0, the outputs, and the two-card run's numbers (None on one
+    card)."""
     import torch
 
     from lamsa_tpu_torch.parallel.mesh import make_mesh
@@ -1834,20 +1868,25 @@ def phase_mesh(card, world, out3, fm):
     meshes = [["cuda:0", "cuda:0"]]
     if n_cards > 1:
         meshes.append(["cuda:0", "cuda:1"])
-    launches, outs = None, []
+    launches, outs, two_cards = None, [], None
     for entries in meshes:
         mesh = make_mesh(entries)
         t0 = time.perf_counter()
         aligner = Aligner(ref, idx, cfg, mesh=mesh)
         aligner.align_batch(reads[:256])
-        torch.cuda.synchronize()
+        sync(aligner)
         log(f"mesh {entries}: device state for {len(set(mesh))} distinct "
             f"device(s) + warm batch {time.perf_counter() - t0:.2f} s")
         out, wall, lc, per_entry = mesh_run(aligner, reads, 256)
         log(f"config-1 over {entries}: {len(reads)} reads in {wall:.3f} s = "
-            f"{len(reads) / wall:.2f} reads/s on {card} (not a speed-up: "
-            f"one host thread drives every entry); DP instances per entry "
+            f"{len(reads) / wall:.2f} reads/s against one entry's "
+            f"{rps3:.2f} (phase 3) on {card} (not a speed-up: one host "
+            f"thread drives every entry); DP instances per entry "
             f"{per_entry}; kernel launches {lc}")
+        if len(set(mesh)) > 1:
+            two_cards = {"launches": lc, "reads_per_s": len(reads) / wall,
+                         "one_entry_reads_per_s": rps3,
+                         "dp_instances_per_entry": per_entry}
         if min(lc.values()) <= 0:
             fail(f"a kernel was never launched over {entries}: {lc}")
         if len(per_entry) != len(mesh):
@@ -1893,12 +1932,13 @@ def phase_mesh(card, world, out3, fm):
     log(f"FM SAM over {meshes[0]} is byte-identical to phase 5's on all "
         f"{len(fm['timed'])} timed reads and all {len(fm['hreads'])} "
         f"28%-error reads")
-    return launches, outs + [out_f, out_h]
+    return launches, outs + [out_f, out_h], two_cards
 
 
 def phase_sharded(world):
-    """Phase 6b: seed_hits_sharded over 2 and 4 entries of the card on
-    the config-1 reads, against seed_hits exactly."""
+    """Phase 6b: seed_hits_sharded over 2 and 4 entries of card 0 and,
+    with more than one card, over ["cuda:0", "cuda:1"] and over every
+    card, on the config-1 reads, against seed_hits exactly."""
     import torch
 
     from lamsa_tpu_torch.io.fasta import encode_seq
@@ -1926,19 +1966,27 @@ def phase_sharded(world):
     t = [torch.from_numpy(a).to(dev) for a in (rc, rl, grid)]
     want = seed_hits(*t, st["keys"], st["starts"], st["counts"],
                      st["positions"], **kw)
-    for D in (2, 4):
-        mesh = make_mesh(["cuda:0"] * D)
+    n_cards = torch.cuda.device_count()
+    meshes = [["cuda:0"] * 2, ["cuda:0"] * 4]
+    if n_cards > 1:
+        meshes.append(["cuda:0", "cuda:1"])
+    if n_cards > 2:
+        meshes.append([f"cuda:{i}" for i in range(n_cards)])
+    for entries in meshes:
+        D = len(entries)
+        mesh = make_mesh(entries)
         sh = place_sharded(mesh, shard_kmer_index(idx, D))
         rc_d, rl_d = shard_batch(mesh, rc, rl)
         parts = seed_hits_sharded(rc_d, rl_d, grid, sh["keys"], sh["starts"],
                                   sh["counts"], sh["positions"], mesh=mesh,
                                   **kw)
         for n in ("qpos", "rpos", "strand", "valid"):
-            if not torch.equal(torch.cat([p[n] for p in parts]), want[n]):
-                fail(f"seed_hits_sharded over {D} entries != seed_hits ({n})")
+            got = torch.cat([p[n].to(dev) for p in parts])
+            if not torch.equal(got, want[n]):
+                fail(f"seed_hits_sharded over {entries} != seed_hits ({n})")
         per = [sum(sh[n][d].nbytes for n in ("keys", "starts", "counts",
                                              "positions")) for d in range(D)]
-        log(f"phase 6b: seed_hits_sharded over {D} entries = seed_hits on "
+        log(f"phase 6b: seed_hits_sharded over {entries} = seed_hits on "
             f"all {len(reads)} config-1 reads ({int(want['valid'].sum())} "
             f"valid hits); index bytes per shard {per} against {whole} "
             f"whole ({whole / max(per):.2f}x less)")
@@ -1947,8 +1995,12 @@ def phase_sharded(world):
 def phase_cli(card):
     """Phase 6c: the CLI with --device cuda on a small world in a
     temporary directory: two shards merged = one run, a simulated kill +
-    --resume = an unbroken run, -d 0 = -d 1, byte for byte."""
+    --resume = an unbroken run, -d 0 (every card) = -d 1, byte for byte;
+    with more than one card, --device cuda:1 -d 1 = -d 1 on card 0 byte
+    for byte."""
     import tempfile
+
+    import torch
 
     from lamsa_tpu_torch import cli, sim
     from lamsa_tpu_torch.io.fasta import write_fasta, write_fastq
@@ -1963,10 +2015,10 @@ def phase_cli(card):
         write_fasta(ref, genome)
         write_fastq(fq, reads)
 
-        def aln(*args):
-            if cli.main(["aln", "--device", "cuda", "--batch-reads",
+        def aln(*args, device="cuda"):
+            if cli.main(["aln", "--device", device, "--batch-reads",
                          str(CLI_BATCH), *args, ref, fq]) != 0:
-                fail(f"aln {args} exited non-zero")
+                fail(f"aln {args} on {device} exited non-zero")
 
         def records(path):
             return [ln for ln in open(path) if not ln.startswith("@")]
@@ -2005,10 +2057,18 @@ def phase_cli(card):
         aln("-o", d1, "-d", "1")
         if records(d0) != records(d1) or records(d1) != records(full):
             fail("CLI on cuda: -d 0 != -d 1")
+        n_cards = torch.cuda.device_count()
+        other = ""
+        if n_cards > 1:
+            c1 = os.path.join(d, "c1.sam")
+            aln("-o", c1, "-d", "1", device="cuda:1")
+            if open(c1).read() != open(d1).read():
+                fail("CLI: --device cuda:1 -d 1 != --device cuda -d 1")
+            other = ", --device cuda:1 -d 1 = -d 1 on card 0 byte for byte"
     log(f"phase 6c: CLI --device cuda on {N_CLI_READS} reads (batch "
         f"{CLI_BATCH}): two shards merged = one run, kill + --resume = an "
-        f"unbroken run byte for byte, -d 0 = -d 1 "
-        f"({time.perf_counter() - t0:.1f} s on {card})")
+        f"unbroken run byte for byte, -d 0 (all {n_cards} card(s)) = -d 1"
+        f"{other} ({time.perf_counter() - t0:.1f} s on {card})")
 
 
 def phase_validate(checks):
@@ -2030,9 +2090,186 @@ def phase_validate(checks):
         f"({time.perf_counter() - t0:.1f} s)")
 
 
+def cli_processes(jobs, timeout=600):
+    """Start one `python -m lamsa_tpu_torch.cli` process per argument
+    list of jobs, all at once, from the repository root, and wait for
+    all of them; a process still running at the timeout is killed, as is
+    every process left running when this returns. Returns (wall seconds
+    from the first start to the last exit, [(exit code, stderr)])."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    procs, res = [], []
+    t0 = time.perf_counter()
+    try:
+        for args in jobs:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "lamsa_tpu_torch.cli", *args],
+                cwd=here, env=env, stdout=subprocess.DEVNULL,
+                stderr=subprocess.PIPE, text=True))
+        for p in procs:
+            try:
+                err = p.communicate(timeout=timeout)[1]
+            except subprocess.TimeoutExpired:
+                p.kill()
+                err = p.communicate()[1] + f"\n(killed after {timeout} s)"
+            res.append((p.returncode, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return time.perf_counter() - t0, res
+
+
+def cli_reads_per_s(err):
+    """The reads/s of a `cli aln` process's closing "done:" line."""
+    import re
+    m = re.search(r"done: .*\(([0-9.]+) reads/s\)", err)
+    return float(m.group(1)) if m else None
+
+
+def without_pg_cl(path):
+    """A SAM file's text with the CL field of its @PG line taken out
+    (each process writes its own command line there)."""
+    import re
+    return re.sub(r"^(@PG\t.*?)\tCL:[^\t\n]*", r"\1",
+                  open(path).read(), flags=re.M)
+
+
+def phase_cards(card, world, out3, rps3, fm):
+    """Phase 6e: several cards (only with more than one card; see the
+    module docstring). Every check runs before the phase fails. Returns
+    its numbers, or None on one card."""
+    import torch
+
+    from lamsa_tpu_torch.pipeline.aln import Aligner
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        log("phase 6e: skipped, 1 card")
+        return None
+    t6e = time.perf_counter()
+    genome, ref, idx, cfg, reads = world
+    failures = []
+
+    def check(ok, msg):
+        if not ok:
+            failures.append(msg)
+            log(f"phase 6e: CHECK FAILED: {msg}")
+
+    # card 1 alone: config-1 and the FM world's timed reads
+    cuda1 = torch.device("cuda", 1)
+    for i in range(2):
+        torch.cuda.synchronize(i)
+        torch.cuda.reset_peak_memory_stats(i)
+    base0 = torch.cuda.memory_allocated(0)
+    a1 = Aligner(ref, idx, cfg, device=cuda1)
+    a1.align_batch(reads[:256])
+    sync(a1)
+    out, wall, lc1, _ = mesh_run(a1, reads, 256)
+    peak1 = torch.cuda.max_memory_allocated(1)
+    peak0 = torch.cuda.max_memory_allocated(0)
+    rps1 = len(reads) / wall
+    log(f"phase 6e: config-1 on cuda:1 alone: {len(reads)} reads in "
+        f"{wall:.3f} s = {rps1:.2f} reads/s against {rps3:.2f} on cuda:0 "
+        f"(phase 3) on {card}; launches {lc1}; max_memory_allocated "
+        f"cuda:1 {peak1} B, cuda:0 {peak0} B against {base0} B before")
+    check(min(lc1.values()) > 0, f"a kernel was never launched on cuda:1: "
+          f"{lc1}")
+    check(sam_lines(out) == sam_lines(out3),
+          "config-1 SAM on cuda:1 != phase 3's on cuda:0")
+    check(peak1 > 0, "nothing was allocated on cuda:1")
+    check(peak0 == base0, f"the cuda:1 run raised card 0's allocation "
+          f"({base0} -> {peak0} B)")
+    del a1
+    fa = Aligner(fm["ref"], fm["fmi"], fm["cfg"], device=cuda1)
+    fa.align_batch(fm["timed"][:FM_BATCH])
+    out_f, wall_f, lc_f, _ = mesh_run(fa, fm["timed"], FM_BATCH)
+    rps_f = len(fm["timed"]) / wall_f
+    log(f"phase 6e: FM 10 kb on cuda:1 alone: {len(fm['timed'])} reads in "
+        f"{wall_f:.3f} s = {rps_f:.2f} reads/s against {fm['rps']:.2f} on "
+        f"cuda:0 (phase 5); launches {lc_f}")
+    check(min(lc_f.values()) > 0, f"a kernel was never launched in the FM "
+          f"run on cuda:1: {lc_f}")
+    check(sam_lines(out_f) == sam_lines(fm["out"]),
+          "FM SAM on cuda:1 != phase 5's on cuda:0")
+    del fa
+
+    shards = shard_processes(
+        genome, idx.k, reads, [f"cuda:{i}" for i in range(n_cards)], check)
+    log(f"phase 6e: {n_cards} `cli aln` processes, one per card "
+        f"(--device cuda:i --num-shards {n_cards} --shard-id i, batch "
+        f"{SHARD_BATCH}), merged = one process on cuda:0 byte for byte but "
+        f"the @PG command line: {len(reads)} reads in "
+        f"{shards['shard_processes_wall_s']:.2f} s of wall = "
+        f"{len(reads) / shards['shard_processes_wall_s']:.2f} reads/s "
+        f"against one process's {shards['one_process_wall_s']:.2f} s = "
+        f"{len(reads) / shards['one_process_wall_s']:.2f} reads/s (first "
+        f"start to last exit); aligning alone (each process's own count): "
+        f"{shards['one_process_aln_reads_per_s']} reads/s in one process, "
+        f"{shards['shard_processes_aln_reads_per_s']} in the shard "
+        f"processes; on {card}")
+    if failures:
+        fail(f"phase 6e: {len(failures)} checks failed: {failures}")
+    log(f"phase 6e passed in {time.perf_counter() - t6e:.1f} s")
+    return {"cards": n_cards, "launches_card1": lc1,
+            "card1_reads_per_s": rps1, "card0_reads_per_s": rps3,
+            "card1_fm_reads_per_s": rps_f, "card0_fm_reads_per_s": fm["rps"],
+            "card1_max_memory_allocated": peak1, **shards}
+
+
+def shard_processes(genome, k, reads, devices, check):
+    """The JAX package's shard deployment, one process per device: the
+    world written to a temporary directory and indexed, one `cli aln`
+    process on devices[0], then one `cli aln --device devices[i]
+    --num-shards N --shard-id i` process per device, all at once, and
+    `merge` of their files, which must equal the one process's apart
+    from the @PG command line (failures go to check). The kernels and
+    the native library must have been built by the caller. Returns the
+    walls and each process's own reads/s."""
+    import tempfile
+
+    from lamsa_tpu_torch import cli
+    from lamsa_tpu_torch.io.fasta import write_fasta, write_fastq
+
+    n = len(devices)
+    with tempfile.TemporaryDirectory() as d:
+        ref_fa, fq = os.path.join(d, "g.fa"), os.path.join(d, "r.fq")
+        write_fasta(ref_fa, genome)
+        write_fastq(fq, reads)
+        if cli.main(["index", "-k", str(k), ref_fa]) != 0:
+            fail("cli index exited non-zero")
+        common = ["aln", "--batch-reads", str(SHARD_BATCH)]
+        one = os.path.join(d, "one.sam")
+        wall1, res1 = cli_processes(
+            [common + ["--device", devices[0], "-o", one, ref_fa, fq]])
+        paths = [os.path.join(d, f"s{i}.sam") for i in range(n)]
+        wall_n, res_n = cli_processes(
+            [common + ["--device", dev, "--num-shards", str(n),
+                       "--shard-id", str(i), "-o", paths[i], ref_fa, fq]
+             for i, dev in enumerate(devices)])
+        for rc, err in res1 + res_n:
+            check(rc == 0, f"a cli aln process exited {rc}: {err[-2000:]}")
+        merged = os.path.join(d, "merged.sam")
+        ok = all(rc == 0 for rc, _ in res1 + res_n) and cli.main(
+            ["merge", "-o", merged, *paths]) == 0
+        check(ok, "cli merge of the shard files failed")
+        if ok:
+            check(without_pg_cl(merged) == without_pg_cl(one),
+                  f"{n} shard processes merged != one process")
+            check(sum(1 for ln in open(one) if not ln.startswith("@"))
+                  >= len(reads), "one process wrote fewer records than "
+                  "reads")
+    return {"shard_processes_wall_s": wall_n, "one_process_wall_s": wall1,
+            "shard_processes_aln_reads_per_s": [cli_reads_per_s(e)
+                                                for _, e in res_n],
+            "one_process_aln_reads_per_s": cli_reads_per_s(res1[0][1])}
+
+
 def phase_steps():
-    """Phase 6e: full_align_step over two entries of the card (replicated
-    and sharded index) against the plain CPU run."""
+    """Phase 6f: full_align_step over two entries of card 0 and, with
+    more than one card, over ["cuda:0", "cuda:1"] (replicated and
+    sharded index) against the plain CPU run."""
     import torch
 
     from lamsa_tpu_torch import sim
@@ -2064,16 +2301,20 @@ def phase_steps():
     dp = {"q": q, "t_win": t_win, "m_len": m_len, "n_len": n_len, "lo": lo}
     batch = {"codes": rc, "len": rl}
     want = full_align_step(make_mesh(["cpu"]), batch, index, dp, cfg)
-    for shard_index in (False, True):
-        got = full_align_step(make_mesh(["cuda:0", "cuda:0"]), batch, index,
-                              dp, cfg, shard_index=shard_index)
-        for part in ("chain", "dp"):
-            for n, w in want[part].items():
-                if not torch.equal(got[part][n].cpu(), w):
-                    fail(f"full_align_step on cuda (shard_index "
-                         f"{shard_index}) != cpu ({part} {n})")
-    log(f"phase 6e: full_align_step over two entries of the card = the "
-        f"plain cpu run (chains and DP scores of {B} reads and {B} "
+    meshes = [["cuda:0", "cuda:0"]]
+    if torch.cuda.device_count() > 1:
+        meshes.append(["cuda:0", "cuda:1"])
+    for entries in meshes:
+        for shard_index in (False, True):
+            got = full_align_step(make_mesh(entries), batch, index, dp, cfg,
+                                  shard_index=shard_index)
+            for part in ("chain", "dp"):
+                for n, w in want[part].items():
+                    if not torch.equal(got[part][n].cpu(), w):
+                        fail(f"full_align_step over {entries} (shard_index "
+                             f"{shard_index}) != cpu ({part} {n})")
+    log(f"phase 6f: full_align_step over {' and '.join(map(str, meshes))} "
+        f"= the plain cpu run (chains and DP scores of {B} reads and {B} "
         f"instances, replicated and sharded index)")
 
 
@@ -2337,33 +2578,42 @@ def main() -> int:
         print(json.dumps({"card": card, "tiles": phase_tiles(dev, scores)}),
               flush=True)
         return 0
-    rng = np.random.default_rng(20260817)
-    err, tot, bnd = phase_kernels(dev, scores, rng)
-    err_a, tot_a, bnd_a = phase_adiag(dev, scores, rng)
-    err_e = phase_edges(dev, scores, rng)
-    fixed_sums, walk_sums = phase_fixed(dev, scores,
-                                        np.random.default_rng(20260818))
-    kernel_ms = {n: fixed_sums[(n, "phase2")][0] for n in DP_WRAPPERS}
-    kernel_ms.update({n: walk_sums[(n, "phase2")]
-                      for n in ("traceback_row", "traceback_adiag")})
+    cards_only = sys.argv[1:] == ["--cards"]
+    if cards_only and torch.cuda.device_count() < 2:
+        fail("--cards needs more than one card")
+    if not cards_only:
+        rng = np.random.default_rng(20260817)
+        err, tot, bnd = phase_kernels(dev, scores, rng)
+        err_a, tot_a, bnd_a = phase_adiag(dev, scores, rng)
+        err_e = phase_edges(dev, scores, rng)
+        fixed_sums, walk_sums = phase_fixed(dev, scores,
+                                            np.random.default_rng(20260818))
+        kernel_ms = {n: fixed_sums[(n, "phase2")][0] for n in DP_WRAPPERS}
+        kernel_ms.update({n: walk_sums[(n, "phase2")]
+                          for n in ("traceback_row", "traceback_adiag")})
     t0 = time.perf_counter()
     world = build_world()
     log(f"config-1 world built in {time.perf_counter() - t0:.1f} s")
-    launches, _rps, e2e_ms, out3, a1 = phase_e2e(dev, card, world)
-    out4, _a10, _timed10 = phase_10kb(dev, card, world)
+    launches, rps3, e2e_ms, out3, a1 = phase_e2e(dev, card, world)
+    ref1 = world[1]
+    checks = [("phase 3", out3, ref1)]
+    if not cards_only:
+        out4, _a10, _timed10 = phase_10kb(dev, card, world)
+        checks.append(("phase 4", out4, ref1))
     fm = phase_fm(dev, card)
-    phase_inflight(card, a1, world[4])
-    phase_coords(dev, scores)
+    if not cards_only:
+        phase_inflight(card, a1, world[4])
+        phase_coords(dev, scores)
     t6 = time.perf_counter()
-    launches_mesh, outs6 = phase_mesh(card, world, out3, fm)
+    launches_mesh, outs6, two_cards = phase_mesh(card, world, out3, rps3, fm)
     phase_sharded(world)
     phase_cli(card)
-    ref1, ref_fm = world[1], fm["ref"]
-    phase_validate([("phase 3", out3, ref1), ("phase 4", out4, ref1),
-                    ("phase 5", fm["out"], ref_fm),
-                    ("phase 5 28% error", fm["out_h"], ref_fm)]
+    ref_fm = fm["ref"]
+    phase_validate(checks + [("phase 5", fm["out"], ref_fm),
+                             ("phase 5 28% error", fm["out_h"], ref_fm)]
                    + [("phase 6a", o, ref1) for o in outs6[:-2]]
                    + [("phase 6a FM", o, ref_fm) for o in outs6[-2:]])
+    cards = phase_cards(card, world, out3, rps3, fm)
     phase_steps()
     log(f"phase 6 passed in {time.perf_counter() - t6:.1f} s")
 
@@ -2372,6 +2622,13 @@ def main() -> int:
                                            "tools"))
     if leaked:
         fail(f"the port imported {leaked}")
+    if cards_only:
+        log(f"all phases of --cards passed in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"cards": {**cards, "two_card_mesh": two_cards,
+                                    "launches_card0": launches}}),
+              flush=True)
+        return 0
     rows = (("banded_sw_row", "banded_sw_pallas.py:344", err["dp"],
              err_e["dp"], tot["dp"], tot["dp_plain"], bnd["dp"]),
             ("traceback_row", "traceback_pallas.py:227", err["tb"], 0,
@@ -2392,11 +2649,18 @@ def main() -> int:
             "bound_by": "operations" if by_ops else "bytes",
             "library_ms": None, "e2e_ms": e2e_ms[name],
             "kernel_ms": kernel_ms[name],
-            "launches_mesh": launches_mesh[name]})
+            "launches_mesh": launches_mesh[name],
+            "launches_card1": cards["launches_card1"][name] if cards
+            else None,
+            "launches_two_cards": two_cards["launches"][name] if two_cards
+            else None})
     log("kernels: ms / plain_ms / bound_ms = one call at each of the 9 "
         "buckets (B = CHUNK_BY_M, phase 2), summed; launches = the "
         "config-1 run of phase 3, launches_mesh = that run over two "
-        "entries of the card (phase 6a); e2e_ms = the kernel's device time in "
+        "entries of the card (phase 6a), launches_card1 = that run on "
+        "cuda:1 alone (phase 6e) and launches_two_cards = over ['cuda:0', "
+        "'cuda:1'] (phase 6a), null on one card; e2e_ms = the kernel's "
+        "device time in "
         "one profiled config-1 pass; kernel_ms = its device time on the "
         "phase-2 work without the wrapper's launch and allocations "
         "(phase 2d, 9 buckets summed); library_ms null: no single PyTorch "

@@ -18,3 +18,7 @@ versions. Nothing falls back from one device to the other.
 # The @PG VN of the SAM header: the JAX package's version
 # (lamsa_tpu/__init__.py), so SAM stays byte-identical to its SAM.
 __version__ = "0.1.0"
+
+# the JAX package's top-level names (lamsa_tpu/__init__.py)
+from lamsa_tpu_torch.config import (  # noqa: F401,E402
+    AlignConfig, ScoreParams, preset)

@@ -5,8 +5,10 @@ started together) and the objects are linked into one shared library
 with a plain C interface (no PyTorch headers, so the build takes
 seconds), written to ``build/lamsa_tpu_torch/`` under the repository
 root on first use and loaded with ctypes. Wrappers pass raw device
-pointers and the current CUDA stream as integers; every C entry returns
-``cudaGetLastError()`` and the wrapper raises if it is not 0.
+pointers and the current CUDA stream as integers, under
+``torch.cuda.device`` of their inputs' card (a C entry sizes its grid
+for, and launches on, the runtime's current device); every C entry
+returns ``cudaGetLastError()`` and the wrapper raises if it is not 0.
 
 ``WALK_TILES`` states the tile schedule of the two traceback walkers
 once: the sources get it as ``-D`` flags, and the numpy mirror of that

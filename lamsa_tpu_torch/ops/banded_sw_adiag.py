@@ -79,17 +79,21 @@ def banded_sw_adiag(q, t_win, m_len, n_len, lo, *, match, mismatch, gapo,
     if q.device.type != "cuda":
         raise ValueError(f"banded_sw_adiag: no kernel for {q.device}")
     dev = q.device
-    dirs32a = torch.empty((B, a_pad(M, W) // 4, W // 2), dtype=torch.int32,
-                          device=dev)
-    h_last = torch.empty((B, W), dtype=torch.int32, device=dev)
-    order = longest_first(m_len + n_len)
-    # the persistent warps' instance counter, zeroed by the C entry
-    nxt = torch.empty(1, dtype=torch.int32, device=dev)
-    rc = _build.lib().lamsa_banded_sw_adiag(
-        q.data_ptr(), t_win.data_ptr(), m_len.data_ptr(), n_len.data_ptr(),
-        lo.data_ptr(), order.data_ptr(), nxt.data_ptr(), dirs32a.data_ptr(),
-        h_last.data_ptr(), B, M, W, match, mismatch, gapo, gape,
-        torch.cuda.current_stream(dev).cuda_stream)
+    # the C entry launches on the runtime's current device: make it the
+    # inputs' card
+    with torch.cuda.device(dev):
+        dirs32a = torch.empty((B, a_pad(M, W) // 4, W // 2),
+                              dtype=torch.int32, device=dev)
+        h_last = torch.empty((B, W), dtype=torch.int32, device=dev)
+        order = longest_first(m_len + n_len)
+        # the persistent warps' instance counter, zeroed by the C entry
+        nxt = torch.empty(1, dtype=torch.int32, device=dev)
+        rc = _build.lib().lamsa_banded_sw_adiag(
+            q.data_ptr(), t_win.data_ptr(), m_len.data_ptr(),
+            n_len.data_ptr(), lo.data_ptr(), order.data_ptr(),
+            nxt.data_ptr(), dirs32a.data_ptr(), h_last.data_ptr(), B, M, W,
+            match, mismatch, gapo, gape,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "lamsa_banded_sw_adiag")
     _count()
     return {"dirs32a": dirs32a, "h_last": h_last}

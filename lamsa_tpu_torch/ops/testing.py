@@ -753,26 +753,28 @@ def walker_counts_cuda(kind, dirs, *starts, M=None):
     staged, blocking reloads, as the kernel counted them)."""
     dev = dirs.device
     B = dirs.shape[0]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    counts = torch.zeros((B, 2), dtype=torch.int32, device=dev)
     ptrs = [x.data_ptr() for x in (dirs, *starts)]
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.int32, device=dev)
 
-    if kind == "row":
-        _, M4, W = dirs.shape
-        outs = (empty(B, 4 * M4), empty(B, 8))
-        rc = _build.lib().lamsa_traceback_row(
-            *ptrs, *(o.data_ptr() for o in outs), counts.data_ptr(), B,
-            4 * M4, W, stream)
-    else:
-        _, A4, V = dirs.shape
-        EW = compact_words(M)
-        outs = (empty(B, M // 32), empty(B, EW), empty(B), empty(B))
-        rc = _build.lib().lamsa_traceback_adiag(
-            *ptrs, *(o.data_ptr() for o in outs), counts.data_ptr(), B, A4,
-            V, M, EW, int(compact_wide(M)), compact_E(M), stream)
+    # the C entries launch on the runtime's current device: the inputs'
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        counts = torch.zeros((B, 2), dtype=torch.int32, device=dev)
+        if kind == "row":
+            _, M4, W = dirs.shape
+            outs = (empty(B, 4 * M4), empty(B, 8))
+            rc = _build.lib().lamsa_traceback_row(
+                *ptrs, *(o.data_ptr() for o in outs), counts.data_ptr(), B,
+                4 * M4, W, stream)
+        else:
+            _, A4, V = dirs.shape
+            EW = compact_words(M)
+            outs = (empty(B, M // 32), empty(B, EW), empty(B), empty(B))
+            rc = _build.lib().lamsa_traceback_adiag(
+                *ptrs, *(o.data_ptr() for o in outs), counts.data_ptr(), B,
+                A4, V, M, EW, int(compact_wide(M)), compact_E(M), stream)
     _build.check(rc, f"lamsa_traceback_{kind}")
     return outs, counts
 

@@ -67,16 +67,18 @@ def traceback_adiag(dirs32a, si, sd, hl, *, M):
         raise ValueError(f"traceback_adiag: no kernel for {dirs32a.device}")
     dev = dirs32a.device
     EW = compact_words(M)
-    opbits = torch.empty((B, M // 32), dtype=torch.int32, device=dev)
-    events = torch.empty((B, EW), dtype=torch.int32, device=dev)
-    term0 = torch.empty(B, dtype=torch.int32, device=dev)
-    n_ev = torch.empty(B, dtype=torch.int32, device=dev)
-    rc = _build.lib().lamsa_traceback_adiag(
-        dirs32a.data_ptr(), si.data_ptr(), sd.data_ptr(), hl.data_ptr(),
-        opbits.data_ptr(), events.data_ptr(), term0.data_ptr(),
-        n_ev.data_ptr(), None, B, A4, V, M, EW, int(compact_wide(M)),
-        compact_E(M),
-        torch.cuda.current_stream(dev).cuda_stream)
+    # the C entry launches on the runtime's current device: make it the
+    # inputs' card
+    with torch.cuda.device(dev):
+        opbits = torch.empty((B, M // 32), dtype=torch.int32, device=dev)
+        events = torch.empty((B, EW), dtype=torch.int32, device=dev)
+        term0 = torch.empty(B, dtype=torch.int32, device=dev)
+        n_ev = torch.empty(B, dtype=torch.int32, device=dev)
+        rc = _build.lib().lamsa_traceback_adiag(
+            dirs32a.data_ptr(), si.data_ptr(), sd.data_ptr(), hl.data_ptr(),
+            opbits.data_ptr(), events.data_ptr(), term0.data_ptr(),
+            n_ev.data_ptr(), None, B, A4, V, M, EW, int(compact_wide(M)),
+            compact_E(M), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "lamsa_traceback_adiag")
     _count()
     return opbits, events, term0, n_ev

@@ -57,12 +57,15 @@ def traceback_row(dirs32, lo, start_i, start_d):
         raise ValueError(f"traceback_row: no kernel for {dirs32.device}")
     dev = dirs32.device
     M = 4 * M4
-    steps = torch.empty((B, M), dtype=torch.int32, device=dev)
-    term = torch.empty((B, 8), dtype=torch.int32, device=dev)
-    rc = _build.lib().lamsa_traceback_row(
-        dirs32.data_ptr(), lo.data_ptr(), start_i.data_ptr(),
-        start_d.data_ptr(), steps.data_ptr(), term.data_ptr(), None, B, M,
-        W, torch.cuda.current_stream(dev).cuda_stream)
+    # the C entry launches on the runtime's current device: make it the
+    # inputs' card
+    with torch.cuda.device(dev):
+        steps = torch.empty((B, M), dtype=torch.int32, device=dev)
+        term = torch.empty((B, 8), dtype=torch.int32, device=dev)
+        rc = _build.lib().lamsa_traceback_row(
+            dirs32.data_ptr(), lo.data_ptr(), start_i.data_ptr(),
+            start_d.data_ptr(), steps.data_ptr(), term.data_ptr(), None, B,
+            M, W, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "lamsa_traceback_row")
     _count()
     return steps, term

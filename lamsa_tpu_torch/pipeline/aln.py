@@ -218,17 +218,21 @@ class Aligner:
 
     def _compute_inflight_budget(self) -> int:
         """Device-byte budget for in-flight DP chunk workspace: a
-        fraction of device memory minus the resident index/ref tensors.
+        fraction of device memory minus the resident index/ref tensors,
+        on the tightest of the cards the entries run on.
         LAMSA_INFLIGHT_BUDGET (bytes) overrides it;
         LAMSA_INFLIGHT_FRACTION sets the fraction (default 0.6), as in
         the JAX package."""
         env = os.environ.get("LAMSA_INFLIGHT_BUDGET")
         if env:
             return int(float(env))
-        _, limit = torch.cuda.mem_get_info(self.device)
-        resident = sum(t.nbytes for t in self._state.values())
+        cards = [d for d in self._states if d.type == "cuda"] \
+            or [self.device]
+        room = min(torch.cuda.mem_get_info(d)[1]
+                   - sum(t.nbytes for t in self._states[d].values())
+                   for d in cards)
         frac = float(os.environ.get("LAMSA_INFLIGHT_FRACTION", "0.6"))
-        return max(int(max(limit - resident, 0) * frac), 256 << 20)
+        return max(int(max(room, 0) * frac), 256 << 20)
 
     # ------------------------------------------------------------- batching
 

@@ -266,6 +266,12 @@ class DpBatcher:
             self._scal[col].append(v)
         return h0
 
+    def add_global_desc(self, m: int, n: int, qd, td) -> int:
+        """Enqueue one global gap fill: qd = (q_base, q_step, q_comp) and
+        td = (t_base, t_step) device-gather descriptors. Returns its
+        handle."""
+        return self._add_one("global", m, n, qd, td)
+
     def add_extend_desc(self, m: int, n: int, to_end_bonus: int, qd,
                         td) -> int:
         """Enqueue one end extension: qd = (q_base, q_step, q_comp) and

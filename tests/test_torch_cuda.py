@@ -175,33 +175,42 @@ def test_dp_batcher_two_entries_on_one_card(dev):
     assert torch.cuda.current_stream(dev) not in b.streams.values()
 
 
+def _content_results(d):
+    """A content-only DpBatcher on device d over 120 global gap fills and
+    120 extensions of random codes: (results, launches per kernel)."""
+    from lamsa_tpu_torch.pipeline.extend import DpBatcher
+    rng = np.random.default_rng(12)
+    b = DpBatcher(S, device=d)
+    hs = []
+    for m in rng.integers(1, 900, 120):
+        t = rng.integers(0, 5, int(m) + 30)
+        q = t[:m].copy()
+        mut = rng.random(len(q)) < 0.05
+        q[mut] = rng.integers(0, 4, int(mut.sum()))
+        n = max(int(m) + int(rng.integers(-25, 30)), 0)
+        hs += [b.add_global(q, t[:n]), b.add_extend(q, t, 5)]
+    n0 = [m.LAUNCHES for m in _kernel_modules()]
+    b.run()
+    launched = [m.LAUNCHES - n for m, n in zip(_kernel_modules(), n0)]
+    return [(r.score, r.cigar.tobytes(), r.q_used, r.t_used)
+            for r in map(b.result, hs)], launched
+
+
+def _kernel_modules():
+    from lamsa_tpu_torch.ops import (banded_sw_adiag, banded_sw_row,
+                                     traceback_adiag, traceback_row)
+    return (banded_sw_row, traceback_row, banded_sw_adiag, traceback_adiag)
+
+
 def test_dp_batcher_content_api_on_the_card(dev):
     """add_global / add_extend with the codes themselves: on the card
     the staged contents ride all four kernels, and every result equals
     the same batcher's on the CPU (the plain versions)."""
-    from lamsa_tpu_torch.ops import (banded_sw_adiag, banded_sw_row,
-                                     traceback_adiag, traceback_row)
-    from lamsa_tpu_torch.pipeline.extend import DpBatcher
-    mods = (banded_sw_row, traceback_row, banded_sw_adiag, traceback_adiag)
-    out = {}
-    for d in (dev, "cpu"):
-        rng = np.random.default_rng(12)
-        b = DpBatcher(S, device=d)
-        hs = []
-        for m in rng.integers(1, 900, 120):
-            t = rng.integers(0, 5, int(m) + 30)
-            q = t[:m].copy()
-            mut = rng.random(len(q)) < 0.05
-            q[mut] = rng.integers(0, 4, int(mut.sum()))
-            n = max(int(m) + int(rng.integers(-25, 30)), 0)
-            hs += [b.add_global(q, t[:n]), b.add_extend(q, t, 5)]
-        n0 = [m.LAUNCHES for m in mods]
-        b.run()
-        launched = [m.LAUNCHES - n for m, n in zip(mods, n0)]
-        out[d] = [(r.score, r.cigar.tobytes(), r.q_used, r.t_used)
-                  for r in map(b.result, hs)]
-        assert min(launched) > 0 if d == dev else max(launched) == 0
-    assert out[dev] == out["cpu"]
+    out, launched = _content_results(dev)
+    assert min(launched) > 0
+    want, launched = _content_results("cpu")
+    assert max(launched) == 0
+    assert out == want
 
 
 @pytest.mark.parametrize("B", [1, 37])
@@ -522,3 +531,133 @@ def test_cuda_chunk_collect_waits_on_its_event(dev, monkeypatch):
     wire = torch.zeros((1, 8), dtype=torch.int32, device=dev)
     with pytest.raises(RuntimeError, match="without the event"):
         real_collect(b, {}, 128, 128, [(0, 1, wire, None)])
+
+
+def _sam_lines(out):
+    from lamsa_tpu_torch.io.sam import format_sam_record
+    return [format_sam_record(r) for recs in out for r in recs]
+
+
+def test_threads_four_on_the_card(dev, config1_like):
+    """-t 4 (finalize on a pool of four threads) on the card gives the
+    records of threads = 1 read for read."""
+    from lamsa_tpu_torch.pipeline.aln import Aligner
+    ref, idx, cfg, reads = config1_like
+    one = Aligner(ref, idx, cfg, device=dev).align_batch(reads)
+    four = Aligner(ref, idx, cfg.replace(threads=4),
+                   device=dev).align_batch(reads)
+    assert len(one) == len(reads)
+    assert _sam_lines(four) == _sam_lines(one)
+
+
+# ---- two cards: a kernel runs on the card its inputs lie on
+
+
+@pytest.fixture
+def dev1():
+    """cuda:1, with card 0 the runtime's current device for the whole
+    test, as in a process that used card 0 first: a kernel launched on
+    the current device rather than on its inputs' card fails there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (runs on cuda:1)")
+    with torch.cuda.device(0):
+        yield torch.device("cuda", 1)
+
+
+@pytest.mark.parametrize("pair", ["row", "adiag"])
+def test_wrappers_on_card_one_match_plain(dev1, pair):
+    """Each of the four wrappers on cuda:1 equals its plain version on
+    the host copy of its inputs: the row pair at the (512, 128) bucket,
+    the antidiagonal pair at (256, 256). The outputs lie on cuda:1, each
+    launch is counted, and card 0's allocation does not move."""
+    from lamsa_tpu_torch.ops import (banded_sw_adiag, banded_sw_row,
+                                     traceback_adiag, traceback_row)
+    rng = np.random.default_rng(31)
+    torch.cuda.reset_peak_memory_stats(0)
+    base0 = torch.cuda.memory_allocated(0)
+    n0 = [m.LAUNCHES for m in _kernel_modules()]
+    if pair == "row":
+        M, W = 512, 128
+        host = [torch.from_numpy(a) for a in make_batch(rng, 64, M, W)]
+        q, t_win, m_len, n_len, lo = [x.to(dev1) for x in host]
+        zero = torch.zeros_like(m_len)
+        got = banded_sw_row.banded_sw_row(q, t_win, m_len, n_len, lo, zero,
+                                          **KW)
+        want = banded_sw_row.banded_sw_row_plain(
+            *host, torch.zeros_like(host[2]), **KW)
+        assert got["dirs32"].device == dev1
+        _assert_dp_equal({k: v.cpu() for k, v in got.items()}, want,
+                         host[2])
+        sd = (n_len - m_len - lo).contiguous()
+        walk = (got["dirs32"], lo, m_len.clone(), sd)
+        tb = traceback_row.traceback_row(*walk)
+        tb_want = traceback_row.traceback_row_plain(
+            *(x.cpu() for x in walk))
+    else:
+        M, W = 256, 256
+        host = [torch.from_numpy(a)
+                for a in make_globals(rng, 64, M, W, stress=True)]
+        q, t_win, m_len, n_len, lo = [x.to(dev1) for x in host]
+        got = banded_sw_adiag.banded_sw_adiag(q, t_win, m_len, n_len, lo,
+                                              **KW)
+        want = banded_sw_adiag.banded_sw_adiag_plain(*host, **KW)
+        assert got["dirs32a"].device == dev1
+        live = adiag_live(host[2], host[3], want["dirs32a"].shape[1])
+        assert torch.equal(torch.where(live, got["dirs32a"].cpu(), 0),
+                           torch.where(live, want["dirs32a"], 0))
+        assert torch.equal(got["h_last"].cpu().clamp(min=-20000),
+                           want["h_last"].clamp(min=-20000))
+        walk = (got["dirs32a"], m_len, (n_len - m_len - lo).contiguous(),
+                (lo >> 1).contiguous())
+        tb = traceback_adiag.traceback_adiag(*walk, M=M)
+        tb_want = traceback_adiag.traceback_adiag_plain(
+            *(x.cpu() for x in walk), M=M)
+    torch.cuda.synchronize(dev1)
+    for g, w in zip(tb, tb_want):
+        assert g.device == dev1
+        assert torch.equal(g.cpu(), w)
+    launched = [m.LAUNCHES - n for m, n in zip(_kernel_modules(), n0)]
+    assert launched == ([1, 1, 0, 0] if pair == "row" else [0, 0, 1, 1])
+    assert torch.cuda.max_memory_allocated(0) == base0
+
+
+@pytest.mark.parametrize("where", ["card1", "two_cards"])
+def test_aligner_on_other_cards_equals_card_zero(dev1, config1_like,
+                                                 where):
+    """Aligner(device="cuda:1") and Aligner over the mesh (cuda:0,
+    cuda:1) give card 0's records read for read, with every kernel
+    launched; the one-card aligner keeps its index on cuda:1."""
+    from lamsa_tpu_torch.pipeline.aln import Aligner
+    ref, idx, cfg, reads = config1_like
+    want = _sam_lines(Aligner(ref, idx, cfg, device="cuda:0")
+                      .align_batch(reads))
+    if where == "card1":
+        aligner = Aligner(ref, idx, cfg, device="cuda:1")
+        assert all(t.device == dev1 for t in aligner._state.values())
+    else:
+        aligner = Aligner(ref, idx, cfg, mesh=["cuda:0", "cuda:1"])
+    n0 = [m.LAUNCHES for m in _kernel_modules()]
+    got = _sam_lines(aligner.align_batch(reads))
+    assert min(m.LAUNCHES - n for m, n in zip(_kernel_modules(), n0)) > 0
+    assert got == want
+
+
+def test_dp_batcher_content_only_on_card_one(dev1):
+    """A content-only DpBatcher(device="cuda:1") stages its codes on
+    cuda:1, launches all four kernels there, and equals the CPU's."""
+    got, launched = _content_results("cuda:1")
+    assert min(launched) > 0
+    want, _ = _content_results("cpu")
+    assert got == want
+
+
+def test_dp_batcher_over_two_cards(dev1):
+    """A DpBatcher over the mesh (cuda:0, cuda:1): each chunk's ranges
+    run on both cards and the results equal one card's."""
+    _, one = _batcher_results(None, torch.device("cuda", 0))
+    b, two = _batcher_results((torch.device("cuda", 0), dev1),
+                              torch.device("cuda", 0))
+    torch.cuda.synchronize()
+    assert two == one
+    assert {s.device for s in b.streams.values()} == {
+        torch.device("cuda", 0), dev1}

@@ -145,3 +145,21 @@ def test_hifi_preset_sam_identical():
     _same_sam(ref, idx, cfg, low)
     sam = _same_sam(ref, idx, cfg, sv)
     assert sum("SA:Z:" in s for s in sam) >= 4      # split alignments
+
+
+def test_threads_four_sam_identical():
+    """-t 4 (AlignConfig.threads = 4: finalize on a pool of four threads)
+    on tests/test_e2e.py's 100 kb world with noisy and SV reads: SAM
+    equals threads = 1 and the JAX Aligner at threads = 4."""
+    rng = np.random.default_rng(42)
+    genome, ref, idx = make_ref(rng, 100000)
+    reads = sim.simulate_reads(rng, genome, 12, read_len=(500, 3000),
+                               sub=0.01, ins=0.05, dele=0.04,
+                               name_prefix="t4noisy") \
+        + sim.simulate_reads(rng, genome, 12, read_len=(1200, 2400),
+                             sub=0.01, ins=0.04, dele=0.03,
+                             sv_fraction=1.0, name_prefix="t4sv")
+    cfg4 = CFG.replace(threads=4)
+    sam4 = _same_sam(ref, idx, cfg4, reads)
+    assert _port_sam(ref, idx, CFG, reads) == sam4
+    assert sum("SA:Z:" in s for s in sam4) >= 6     # split alignments

@@ -227,3 +227,36 @@ def test_inflight_budget_environment(monkeypatch):
         futs[0].result()              # a launch with no parts to collect
     full = extend._chunk_inflight_bytes(1024, 256, True)
     assert taken == [full, full // 4]
+
+
+def test_inflight_budget_reads_the_entries_own_cards(monkeypatch):
+    """The in-flight budget asks each card the entries run on for its
+    memory (cuda:1 for an Aligner on cuda:1, both cards under a two-card
+    mesh) and takes the tightest, less that card's resident tensors."""
+    codes = np.random.default_rng(2).integers(0, 4, 4000).astype(np.uint8)
+    from lamsa_tpu_torch.index.kmer import KmerIndex as PortKmer
+    from lamsa_tpu_torch.io.refpack import PackedReference as PortRef
+    ref = PortRef(names=["c"], offsets=np.array([0, 4000]), codes=codes,
+                  amb_runs=np.zeros((0, 2), np.int64))
+    a = Aligner(ref, PortKmer.build(codes, 13), device="cpu")
+    st = a._state
+    resident = sum(t.nbytes for t in st.values())
+    total = {0: 8 << 30, 1: 4 << 30}
+    asked = []
+
+    def mem_get_info(dev=None):
+        asked.append(torch.device(dev))
+        return 0, total[torch.device(dev).index]
+
+    monkeypatch.setattr(torch.cuda, "mem_get_info", mem_get_info)
+    monkeypatch.delenv("LAMSA_INFLIGHT_BUDGET", raising=False)
+    monkeypatch.delenv("LAMSA_INFLIGHT_FRACTION", raising=False)
+    card = [torch.device("cuda", i) for i in (0, 1)]
+    for states, want in (({card[1]: st}, 4 << 30),
+                         ({card[0]: st}, 8 << 30),
+                         ({card[0]: st, card[1]: st}, 4 << 30)):
+        asked.clear()
+        a._states = states
+        a.device = next(iter(states))
+        assert a._compute_inflight_budget() == int((want - resident) * 0.6)
+        assert asked == list(states)

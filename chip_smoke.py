@@ -6,6 +6,7 @@
     python3 chip_smoke.py --tiles     # only the walkers' tile sizes (below)
     python3 chip_smoke.py --wholegenome   # config 4 at 3.1 Gb (below)
     python3 chip_smoke.py --cards     # several cards only (below)
+    python3 chip_smoke.py --tools     # the ported validation tools (below)
 
 Phases (any failure exits non-zero without a result line):
   1. set-up: require CUDA, print the card's name and power limit
@@ -55,6 +56,12 @@ Phases (any failure exits non-zero without a result line):
      byte for byte against the port's CPU path (the plain versions), and
      the SAM of the first 64 reads on the card with ADIAG_ENABLED False
      and True (byte-identical);
+  3r. the repeat-family world of tests/test_mapq.py
+     (lamsa_tpu_torch/tools/repeat_bench.py repeat_world: a 1.5 Mb
+     sim.repeat_genome, about half repeats, k = 13, 100 reads of 1-6 kb,
+     preset("pacbio")) on the card: every kernel launched (counts set to
+     0 just before), SAM equal to the CPU path's on every read, and
+     MAPQ >= 30 wrong on under 1% of at least 50 records;
   4. the 10 kb world of bench.py's 10 kb section (worlds.reads_10kb: 768
      reads of 9-11 kb on the config-1 genome): warm on 256 reads, time
      the other 512
@@ -173,6 +180,25 @@ seconds; its last line is a JSON object {"wholegenome": ...}. It took
 1419 s on an H100 host of 8 cores, the build 1217 s of it: give it
 --timeout 3600.
 
+--tools runs set-up and then the ported validation tools
+(lamsa_tpu_torch/tools/) on the card: (a) repeat_bench at 5 Mb / 300 reads
+and at chr20 scale, 64 Mb / 1,000 reads (every kernel launched, MAPQ >= 30
+error < 1% on at least 50 records, SAM equal to the CPU path's on the
+first 64 reads, DP buckets reached logged, (5120, 256) among them or not);
+(b) the whole ONT preset sweep (6 candidates x 4 error profiles, 48 reads a
+cell; the step8,mm2, step6,mm2 and fm+1edit(ont) rows at 28% equal to the
+CPU path's SAM on every read); (c) soak_bench --leg all on a workdir that
+`cli index` builds from the 64 Mb repeat genome: 20,000 reads of 9-11 kb at
+batch 256 through `cli aln --device cuda`, shard 0 of leg B killed at half
+its reads and resumed; leg A's RSS and device memory last quarter within
+1.10x of the first, its throughput windows with their max_dev, the merged
+SAM equal to leg A's; then in this process one soak batch (its
+launches; SAM equal to leg A's records of those reads) and the first soak
+batch reaching the (5120, 256) bucket, narrowed to at most 8 reads that
+still reach it, whose SAM must equal the CPU path's. Every check runs
+and is reported before the mode fails on any; its last lines are a JSON
+object {"tools": ...} and the result line. Give it --timeout 3600.
+
 --cards (more than one card) runs set-up and then only what the
 several-card phases are compared with: phases 3 and 5, then phase 6
 (a-f); its last line is a JSON object {"cards": ...} with phase 6e's
@@ -212,6 +238,14 @@ N_CLI_READS, CLI_BATCH = 48, 12     # phase 6c's world (4 batches)
 SHARD_BATCH = 128                   # phase 6e's shard processes (4 batches)
 COORD_BUCKET, COORD_K = (512, 256), 24   # phase 5b's chunk
 WG_N_CHROM_RUN = 24                 # --wholegenome: all of config 4
+REPEAT_MB, N_REPEAT = 1.5, 100      # phase 3r: tests/test_mapq.py's world
+REPEAT_READ_LEN = (1000, 6000)
+TOOLS_REPEAT = ((5.0, 300), (64.0, 1000))   # --tools (a): Mb, reads
+N_TOOLS_SAM_CHECK = 64
+N_ONT = 48                          # --tools (b): reads per cell
+ONT_CHECK_ROWS = ("step8,mm2", "step6,mm2", "fm+1edit(ont)")
+SOAK_READS, SOAK_BATCH, SOAK_KILL = 20000, 256, 0.5    # --tools (c)
+SOAK_SCAN = 8           # soak batches searched for one reaching (5120, 256)
 DEPTHS, N_DEPTH_PASSES = (1, 2, 3), 3   # batches at once (in_flight)
 
 
@@ -1312,17 +1346,23 @@ def inflight_grid(card, runs):
     return table
 
 
+def dp_buckets(counters):
+    """{"MxW": (instances, cells)} per DP bucket from STATS counters."""
+    return {k[13:]: (v, counters.get("dp_cells_" + k[13:], 0))
+            for k, v in sorted(counters.items())
+            if k.startswith("dp_instances_")
+            and not k.startswith("dp_instances_entry")}
+
+
 def log_dp_buckets():
-    """DP instances and cells per bucket of the last STATS window."""
+    """DP instances and cells per bucket of the last STATS window; returns
+    them (dp_buckets)."""
     from lamsa_tpu_torch.utils.timers import GLOBAL as STATS
-    per_bucket = {k[len("dp_instances_"):]: (STATS.counters[k],
-                                             STATS.counters.get(
-                                                 "dp_cells_" + k[13:], 0))
-                  for k in sorted(STATS.counters)
-                  if k.startswith("dp_instances_")}
+    per_bucket = dp_buckets(STATS.counters)
     log("DP instances / cells per bucket: " + ", ".join(
         f"{b}: {i} / {c}" for b, (i, c) in per_bucket.items())
         + f"; adiag instances {STATS.counters.get('dp_adiag_instances', 0)}")
+    return per_bucket
 
 
 def wholegenome_ref(n_chrom):
@@ -2531,6 +2571,319 @@ def phase_tiles(dev, scores):
     return out
 
 
+# ------------------------------------------------- the ported tools' worlds
+
+def phase_repeat(dev, card):
+    """Phase 3r: tests/test_mapq.py's repeat-family world on the card
+    (lamsa_tpu_torch/tools/repeat_bench.py's genome at 1.5 Mb, 100 reads of
+    1-6 kb, preset("pacbio")). Returns the kernels' launches in its run."""
+    import torch
+
+    from lamsa_tpu_torch.pipeline.aln import Aligner
+    from lamsa_tpu_torch.tools import repeat_bench as rb
+
+    t0 = time.perf_counter()
+    _genome, ref, idx, cfg, reads = rb.repeat_world(
+        REPEAT_MB, N_REPEAT, read_len=REPEAT_READ_LEN)
+    log(f"phase 3r: repeat-family world, {ref.total_len} bp "
+        f"(sim.repeat_genome), k={idx.k}, {len(reads)} reads, "
+        f"preset('pacbio'); built in {time.perf_counter() - t0:.1f} s")
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    out = rb.align(Aligner(ref, idx, cfg, device=dev), reads)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    log(f"repeat world: {len(reads)} reads in {wall:.3f} s = "
+        f"{len(reads) / wall:.2f} reads/s (first batch included) on {card}; "
+        f"launches {launches}")
+    if min(launches.values()) <= 0:
+        fail(f"phase 3r: a kernel was never launched: {launches}")
+    pairs = rb.mapq_calibration(out, reads)
+    hi = [ok for m, ok in pairs if m >= 30]
+    wrong = sum(1 for ok in hi if not ok)
+    log(f"repeat world MAPQ >= 30: {wrong} wrong of {len(hi)} records "
+        f"(bar: < 1%, at least 50 records); below 30: "
+        f"{sum(1 for m, ok in pairs if m < 30 and not ok)} wrong of "
+        f"{sum(1 for m, _ in pairs if m < 30)}")
+    if len(hi) < 50 or wrong >= 0.01 * len(hi):
+        fail(f"phase 3r: MAPQ >= 30 error {wrong}/{len(hi)} (bar: < 1% "
+             f"of at least 50)")
+    t0 = time.perf_counter()
+    cpu = rb.align(Aligner(ref, idx, cfg, device="cpu"), reads)
+    got = sam_lines(out)
+    check_sam(got, sam_lines(cpu), "phase 3r: repeat world cuda vs cpu")
+    log(f"phase 3r ok: SAM of all {len(reads)} reads ({len(got)} records) "
+        f"is byte-identical between cuda and the cpu plain path "
+        f"({time.perf_counter() - t0:.1f} s on the cpu)")
+    return launches
+
+
+def _soak_workdir(genome, workdir):
+    """The soak tool's workdir: index/ from this package's `cli index`
+    over the genome (auto k), in the JAX package's layout."""
+    from lamsa_tpu_torch import cli
+    from lamsa_tpu_torch.io.fasta import write_fasta
+    fa = os.path.join(workdir, "genome.fa")
+    write_fasta(fa, genome)
+    if cli.main(["index", fa]) != 0:
+        raise RuntimeError("cli index failed")
+    os.rename(fa + ".lti", os.path.join(workdir, "index"))
+    os.unlink(fa)
+
+
+def soak_batches(workdir, dev, check):
+    """In this process, on the soak's reads with the soak's `cli aln`
+    config: the first batch (its launches, recall, SAM equal to leg A's
+    records of its reads); then the first of SOAK_SCAN batches whose DP
+    reaches the (5120, 256) bucket, narrowed on the card by halves to at
+    most 8 reads that still reach it, whose SAM must equal the CPU
+    path's. Returns the numbers."""
+    import torch
+
+    from lamsa_tpu_torch import cli
+    from lamsa_tpu_torch.eval import evaluate
+    from lamsa_tpu_torch.index.kmer import KmerIndex
+    from lamsa_tpu_torch.io.fasta import read_fastx
+    from lamsa_tpu_torch.io.refpack import PackedReference
+    from lamsa_tpu_torch.pipeline.aln import Aligner
+    from lamsa_tpu_torch.utils.timers import GLOBAL as STATS
+
+    n = SOAK_BATCH
+    idx_dir = os.path.join(workdir, "index")
+    ref = PackedReference.load(idx_dir)
+    idx = KmerIndex.load(idx_dir)
+    soak = os.path.join(workdir, "soak")
+    reads = []
+    for r in read_fastx(os.path.join(soak, f"reads_{SOAK_READS}.fq")):
+        reads.append(r)
+        if len(reads) == SOAK_SCAN * n:
+            break
+    by_name = collections.defaultdict(list)
+    with open(os.path.join(soak, "runA", "out.sam")) as fh:
+        for ln in fh:
+            if not ln.startswith("@"):
+                by_name[ln.split("\t", 1)[0]].append(ln.rstrip("\n"))
+    cfg = cli.aln_config(cli.build_parser().parse_args(
+        ["aln", "--batch-reads", str(n), "genome.fa", "reads.fq"]))
+    aligner = Aligner(ref, idx, cfg, device=dev)
+
+    def run(batch):
+        STATS.reset()
+        out = aligner.align_batch(batch)
+        torch.cuda.synchronize()
+        return out, STATS.counters.get("dp_instances_5120x256", 0)
+
+    nums, found = {}, None
+    for b in range(SOAK_SCAN):
+        batch = reads[b * n:(b + 1) * n]
+        launch_counts(reset=True)
+        out, n5120 = run(batch)
+        if b == 0:
+            launches = launch_counts()
+            st = evaluate(out, batch)
+            nums["first_batch"] = {"launches": launches,
+                                   "part_recall": st.part_recall,
+                                   "read_accuracy": st.read_accuracy}
+            log(f"one soak batch ({n} reads) in this process: launches "
+                f"{launches}; {st.summary()}")
+            got = sam_lines(out)
+            check(got == [ln for r in batch for ln in by_name[r.name]],
+                  f"one soak batch in this process = leg A's records of "
+                  f"those reads ({len(got)})")
+        if n5120:
+            found = (b, batch)
+            break
+    check(found is not None, f"one of the first {SOAK_SCAN} soak batches "
+                             f"reaches (5120, 256)")
+    if found is None:
+        return nums
+    b, group = found
+    while len(group) > 8:
+        half = len(group) // 2
+        group = group[:half] if run(group[:half])[1] else group[half:]
+    out, n5120 = run(group)
+    t0 = time.perf_counter()
+    cpu = Aligner(ref, idx, cfg, device="cpu").align_batch(group)
+    nums["bucket_5120x256"] = {"batch": b, "reads": [r.name.split("|")[0]
+                                                     for r in group],
+                               "instances": n5120}
+    check(n5120 > 0 and sam_lines(out) == sam_lines(cpu),
+          f"soak batch {b} reaches (5120, 256); {len(group)} of its reads "
+          f"still reach it ({n5120} instances) and their SAM on the card = "
+          f"the cpu path's ({time.perf_counter() - t0:.1f} s on the cpu)")
+    return nums
+
+
+def soak_buckets(workdir):
+    """DP instances / cells per bucket over leg A's whole run: the
+    counters of the last line of its --stats file."""
+    with open(os.path.join(workdir, "soak", "runA", "stats.jsonl")) as fh:
+        return dp_buckets(json.loads(fh.readlines()[-1])["counters"])
+
+
+def phase_tools(dev, card):
+    """--tools: the port's validation tools on the card (see the module
+    docstring). Every check runs and is reported before the mode fails
+    on any. Returns the numbers of its JSON line."""
+    import shutil
+    import tempfile
+    import traceback
+
+    import torch
+
+    from lamsa_tpu_torch import sim
+    from lamsa_tpu_torch.eval import evaluate
+    from lamsa_tpu_torch.pipeline.aln import Aligner
+    from lamsa_tpu_torch.tools import ont_preset_sweep as ont
+    from lamsa_tpu_torch.tools import repeat_bench as rb
+    from lamsa_tpu_torch.tools import soak_bench
+    from lamsa_tpu_torch.utils.timers import GLOBAL as STATS
+
+    failures = []
+    nums = {"card": card}
+
+    def check(ok, msg):
+        log(f"check: {msg}: {'ok' if ok else 'FAILED'}")
+        if not ok:
+            failures.append(msg)
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        try:
+            fn()
+        except Exception:       # noqa: BLE001 - reported, then the mode fails
+            log(f"{name} raised:\n{traceback.format_exc()}")
+            failures.append(f"{name} raised")
+        nums[f"{name}_s"] = time.perf_counter() - t0
+        log(f"{name}: {nums[f'{name}_s']:.1f} s")
+
+    worlds = {}
+
+    def repeat_worlds():
+        for mb, n in TOOLS_REPEAT:
+            key = f"repeat_{mb:g}mb"
+            log(f"--tools (a): repeat_bench at {mb} Mb, {n} reads on {card}")
+            STATS.reset()
+            launch_counts(reset=True)
+            r = rb.run(n, mb, device=str(dev))
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            buckets = log_dp_buckets()
+            res = r["result"]
+            nums[key] = {**res, "reads_per_s": r["reads_per_s"],
+                         "launches": launches, "dp_buckets": buckets,
+                         "bucket_5120x256": "5120x256" in buckets}
+            log(f"{key}: {r['reads_per_s']:.2f} reads/s (first batch "
+                f"included), launches {launches}; (5120, 256) reached: "
+                f"{'5120x256' in buckets}")
+            check(min(launches.values()) > 0,
+                  f"{key}: every kernel launched ({launches})")
+            check(res["n_records_mapq30"] >= 50 and res["value"] < 0.01,
+                  f"{key}: MAPQ >= 30 error {res['value']} < 0.01 on "
+                  f"{res['n_records_mapq30']} records (>= 50)")
+            t0 = time.perf_counter()
+            cpu = rb.align(Aligner(r["ref"], r["index"], r["config"],
+                                   device="cpu"),
+                           r["reads"][:N_TOOLS_SAM_CHECK])
+            same = sam_lines(r["out"][:N_TOOLS_SAM_CHECK]) == sam_lines(cpu)
+            check(same, f"{key}: SAM cuda = cpu on the first "
+                        f"{N_TOOLS_SAM_CHECK} reads "
+                        f"({time.perf_counter() - t0:.1f} s on the cpu)")
+            for strand in "+-":
+                sel = [i for i, rd in enumerate(r["reads"])
+                       if sim.parse_truth(rd.name)[0].strand == strand]
+                st = evaluate([r["out"][i] for i in sel],
+                              [r["reads"][i] for i in sel])
+                nums[key][f"part_recall_{strand}"] = st.part_recall
+                log(f"{key}, reads whose first part lies on the {strand} "
+                    f"strand: {st.summary()}")
+            worlds[mb] = r["genome"]
+
+    def sweep():
+        log(f"--tools (b): ONT preset sweep, {N_ONT} reads per cell on "
+            f"{card}")
+        keep = {(row, "28%") for row in ONT_CHECK_ROWS}
+        launch_counts(reset=True)
+        cells, kept, (_g, ref, idx, fm) = ont.sweep(N_ONT, str(dev),
+                                                    keep=keep)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        nums["ont_sweep"] = {"cells": cells, "launches": launches}
+        check(min(launches.values()) > 0,
+              f"ont sweep: every kernel launched ({launches})")
+        cands = ont.candidates(idx, fm)
+        for row, prof in sorted(keep):
+            reads, out = kept[(row, prof)]
+            cfg, index = cands[row]
+            t0 = time.perf_counter()
+            cpu = Aligner(ref, index, cfg, device="cpu").align_batch(reads)
+            check(sam_lines(out) == sam_lines(cpu),
+                  f"ont sweep {row} at {prof}: SAM cuda = cpu on all "
+                  f"{len(reads)} reads ({time.perf_counter() - t0:.1f} s "
+                  f"on the cpu)")
+
+    def soak():
+        genome = worlds.get(TOOLS_REPEAT[-1][0])
+        if genome is None:
+            raise RuntimeError("the 64 Mb repeat genome was not built")
+        workdir = tempfile.mkdtemp(prefix="soak_")
+        try:
+            t0 = time.perf_counter()
+            _soak_workdir(genome, workdir)
+            log(f"--tools (c): soak workdir indexed by `cli index` in "
+                f"{time.perf_counter() - t0:.1f} s; soak_bench --leg all, "
+                f"{SOAK_READS} reads, batch {SOAK_BATCH}, kill fraction "
+                f"{SOAK_KILL}, on {card}")
+            res = soak_bench.main([
+                "--workdir", workdir, "--reads", str(SOAK_READS),
+                "--batch", str(SOAK_BATCH), "--leg", "all",
+                "--kill-frac", str(SOAK_KILL), "--device", str(dev)])
+            nums["soak"] = res
+            a, b = res["leg_A"], res["leg_B"]
+            check(a["rss_flat_10pct"],
+                  f"soak leg A RSS last quarter {a['rss_last_quarter_mb']} "
+                  f"MB <= 1.10 x first {a['rss_first_quarter_mb']} MB "
+                  f"(peak {a['rss_peak_mb']})")
+            mem = "dev_mem" if "dev_mem_flat_10pct" in a else "reserved"
+            check(a.get(f"{mem}_flat_10pct", False),
+                  f"soak leg A device memory ({mem}; source "
+                  f"{a.get('dev_mem_source')}) last quarter "
+                  f"{a.get(f'{mem}_last_quarter_mb')} MB <= 1.10 x first "
+                  f"{a.get(f'{mem}_first_quarter_mb')} MB (peak "
+                  f"{a.get(f'{mem}_peak_mb')})")
+            log(f"soak leg A caching allocator: allocated first / last "
+                f"quarter / peak {a.get('allocated_first_quarter_mb')} / "
+                f"{a.get('allocated_last_quarter_mb')} / "
+                f"{a.get('allocated_peak_mb')} MB, reserved "
+                f"{a.get('reserved_first_quarter_mb')} / "
+                f"{a.get('reserved_last_quarter_mb')} / "
+                f"{a.get('reserved_peak_mb')} MB")
+            log(f"soak leg A throughput windows {a['window_curve']}; after "
+                f"window 0: {a['steady']} (max_dev reported, no bar)")
+            check(b["shard0_killed"] and b["resume_merge_equals_plain_run"],
+                  f"soak leg B: shard 0 killed at {b['kill_at_reads']} "
+                  f"reads ({b['shard0_killed']}), resumed, merged = leg "
+                  f"A's SAM apart from @PG / @CO")
+            buckets = soak_buckets(workdir)
+            nums["soak_dp_buckets"] = buckets
+            log("soak leg A DP instances / cells per bucket: " + ", ".join(
+                f"{k}: {i} / {c}" for k, (i, c) in buckets.items())
+                + f"; (5120, 256) reached: {'5120x256' in buckets}")
+            nums["soak_batches"] = soak_batches(workdir, dev, check)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+
+    part("repeat", repeat_worlds)
+    part("ont_sweep", sweep)
+    part("soak", soak)
+    nums["failures"] = failures
+    if failures:
+        print(json.dumps({"tools": nums}, default=str), flush=True)
+        fail(f"--tools: {len(failures)} checks failed: {failures}")
+    return nums
+
+
 def main() -> int:
     t_start = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2569,6 +2922,15 @@ def main() -> int:
         nums["elapsed_s"] = time.perf_counter() - t_start
         print(json.dumps({"wholegenome": nums}), flush=True)
         return 0
+    if sys.argv[1:] == ["--tools"]:
+        nums = phase_tools(dev, card)
+        nums["elapsed_s"] = time.perf_counter() - t_start
+        log(f"all checks of --tools passed in {nums['elapsed_s']:.1f} s")
+        print(json.dumps({"tools": nums}, default=str), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if sys.argv[1:] == ["--profile"]:
         print(json.dumps({"profile": phase_profile(dev, card)}), flush=True)
         return 0
@@ -2598,6 +2960,7 @@ def main() -> int:
     ref1 = world[1]
     checks = [("phase 3", out3, ref1)]
     if not cards_only:
+        launches_repeat = phase_repeat(dev, card)
         out4, _a10, _timed10 = phase_10kb(dev, card, world)
         checks.append(("phase 4", out4, ref1))
     fm = phase_fm(dev, card)
@@ -2650,13 +3013,15 @@ def main() -> int:
             "library_ms": None, "e2e_ms": e2e_ms[name],
             "kernel_ms": kernel_ms[name],
             "launches_mesh": launches_mesh[name],
+            "launches_repeat": launches_repeat[name],
             "launches_card1": cards["launches_card1"][name] if cards
             else None,
             "launches_two_cards": two_cards["launches"][name] if two_cards
             else None})
     log("kernels: ms / plain_ms / bound_ms = one call at each of the 9 "
         "buckets (B = CHUNK_BY_M, phase 2), summed; launches = the "
-        "config-1 run of phase 3, launches_mesh = that run over two "
+        "config-1 run of phase 3, launches_repeat = the repeat world of "
+        "phase 3r, launches_mesh = that run over two "
         "entries of the card (phase 6a), launches_card1 = that run on "
         "cuda:1 alone (phase 6e) and launches_two_cards = over ['cuda:0', "
         "'cuda:1'] (phase 6a), null on one card; e2e_ms = the kernel's "

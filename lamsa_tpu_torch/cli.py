@@ -213,8 +213,36 @@ def _mesh(args):
     return make_mesh(devices) if n > 1 else None
 
 
-def cmd_aln(args) -> int:
+def _device_memory(device) -> str:
+    """The progress line's tail on a card: the caching allocator's bytes
+    allocated and reserved there (the soak tool reads both, so a rise in
+    reserved is not taken for a leak); empty on the CPU."""
+    import torch
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return ""
+    return (f", device memory allocated "
+            f"{torch.cuda.memory_allocated(dev) / 2**20:.1f} MiB, reserved "
+            f"{torch.cuda.memory_reserved(dev) / 2**20:.1f} MiB")
+
+
+def aln_config(args):
+    """The AlignConfig of an ``aln`` command line: its preset, then its
+    flags."""
     from lamsa_tpu_torch.config import ScoreParams, preset
+    cfg = preset(args.preset)
+    scores = ScoreParams(match=args.match, mismatch=args.mismatch,
+                         gap_open=args.gap_open, gap_ext=args.gap_ext,
+                         end_bonus=cfg.scores.end_bonus)
+    return cfg.replace(scores=scores, seed_step=args.seed_step,
+                       batch_reads=args.batch_reads,
+                       band_width=args.band_width, threads=args.threads,
+                       rg_id=args.rg, emit_md=args.md,
+                       sv_min_size=args.sv_min, sv_max_size=args.sv_max,
+                       report_secondary=args.secondary)
+
+
+def cmd_aln(args) -> int:
     from lamsa_tpu_torch.index.fmindex import FmIndex
     from lamsa_tpu_torch.index.kmer import KmerIndex
     from lamsa_tpu_torch.io.fasta import read_fastx
@@ -231,20 +259,11 @@ def cmd_aln(args) -> int:
     index = FmIndex.load(idx_dir) if FmIndex.exists(idx_dir) \
         else KmerIndex.load(idx_dir)
 
-    cfg = preset(args.preset)
     if args.band_width > 256:
         print(f"[lamsa_tpu_torch aln] -w {args.band_width} exceeds the "
               f"widest kernel band; clamping to 256", file=sys.stderr)
         args.band_width = 256
-    scores = ScoreParams(match=args.match, mismatch=args.mismatch,
-                         gap_open=args.gap_open, gap_ext=args.gap_ext,
-                         end_bonus=cfg.scores.end_bonus)
-    cfg = cfg.replace(scores=scores, seed_step=args.seed_step,
-                      batch_reads=args.batch_reads,
-                      band_width=args.band_width, threads=args.threads,
-                      rg_id=args.rg, emit_md=args.md,
-                      sv_min_size=args.sv_min, sv_max_size=args.sv_max,
-                      report_secondary=args.secondary)
+    cfg = aln_config(args)
 
     # --- data parallelism over -d N device entries: every device stage
     # splits its rows over them; SAM identical to one device
@@ -354,7 +373,8 @@ def cmd_aln(args) -> int:
         if n_reads % PROGRESS_EVERY == 0:
             dt = time.time() - t0
             print(f"[lamsa_tpu_torch aln] {n_reads} reads, "
-                  f"{n_reads / dt:.1f} reads/s", file=sys.stderr)
+                  f"{n_reads / dt:.1f} reads/s"
+                  f"{_device_memory(args.device)}", file=sys.stderr)
     if args.output:
         out.flush()
     write_progress()

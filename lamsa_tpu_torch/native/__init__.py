@@ -107,9 +107,13 @@ def _runs_to_cigar(ops: np.ndarray, n: int) -> np.ndarray:
 # Reused output buffers for the batch decoders. Fresh np.empty of
 # B x maxc uint32 costs ~50 us per first-touched page on this VM
 # (firecracker EPT faults) — measured 0.8-3 s per 64 MB allocation,
-# which dwarfed the actual C decode (0.6 ms). Keyed by shape and
-# thread-local: the batch pipeline (pipeline/aln.py align_reads) may
-# run two collect loops concurrently.
+# which dwarfed the actual C decode (0.6 ms). Thread-local: the batch
+# pipeline (pipeline/aln.py align_reads) may run two collect loops
+# concurrently. Unlike the JAX package, whose chunks come in a few
+# padded sizes, this package's chunks have their real instance counts:
+# one buffer per (B, maxc) grew host memory with every new count over a
+# long run, so each thread keeps one buffer per maxc, grown to the next
+# power of two >= B, and hands out its first B rows.
 _buf_cache = threading.local()
 
 
@@ -117,13 +121,13 @@ def _out_buffers(B: int, maxc: int):
     cache = getattr(_buf_cache, "d", None)
     if cache is None:
         cache = _buf_cache.d = {}
-    key = (B, maxc)
-    bufs = cache.get(key)
-    if bufs is None:
-        bufs = (np.empty((B, maxc), np.uint32), np.empty(B, np.int32))
+    bufs = cache.get(maxc)
+    if bufs is None or len(bufs[1]) < B:
+        cap = 1 << max(B - 1, 0).bit_length()
+        bufs = (np.empty((cap, maxc), np.uint32), np.empty(cap, np.int32))
         bufs[0].fill(0)                 # touch pages once
-        cache[key] = bufs
-    return bufs
+        cache[maxc] = bufs
+    return bufs[0][:B], bufs[1][:B]
 
 
 def revcomp4(codes: np.ndarray) -> np.ndarray:

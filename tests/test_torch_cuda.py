@@ -97,14 +97,11 @@ def test_traceback_row_kernel_matches_plain(dev, M, W):
         assert torch.equal(got[1], want[1])
 
 
-def test_dp_tb_gather_cuda_matches_cpu(dev):
-    """A whole descriptor chunk (gather -> DP kernel -> clip decision ->
-    traceback kernel -> compact wire) on the card equals the CPU path."""
-    from lamsa_tpu_torch.ops.dp_chain import dp_tb_gather
+def _row_chunk(rng, M, W, K):
+    """Packed read / reference words and K descriptors of global gap
+    fills and extensions on both strands, for the row pair."""
     from lamsa_tpu_torch.ops.wire import global_lo, pack_codes_words, \
         pack_desc
-    rng = np.random.default_rng(3)
-    M, W, K = 256, 128, 64
     flat = rng.integers(0, 5, 20000).astype(np.uint8)
     refc = rng.integers(0, 4, 50000).astype(np.uint8)
     m = rng.integers(1, M, K)
@@ -120,13 +117,17 @@ def test_dp_tb_gather_cuda_matches_cpu(dev):
     lo = np.where(glob, global_lo(m, n, W), -(W // 2))
     desc = pack_desc(qb, qs, rng.integers(0, 2, K), tb, ts, m, n, lo, glob,
                      np.where(glob, 0, 5))
-    wires = []
-    for d in (dev, torch.device("cpu")):
-        wires.append(dp_tb_gather(
-            torch.from_numpy(pack_codes_words(flat)).to(d),
-            torch.from_numpy(pack_codes_words(refc)).to(d),
-            torch.from_numpy(desc).to(d), M=M, W=W, scores=S,
-            zdrop=100).cpu())
+    return pack_codes_words(flat), pack_codes_words(refc), desc
+
+
+def test_dp_tb_gather_cuda_matches_cpu(dev):
+    """A whole descriptor chunk (gather -> DP kernel -> clip decision ->
+    traceback kernel -> compact wire) on the card equals the CPU path."""
+    from lamsa_tpu_torch.ops.dp_chain import dp_tb_gather
+    chunk = _row_chunk(np.random.default_rng(3), 256, 128, 64)
+    wires = [dp_tb_gather(*_on(d, chunk), M=256, W=128, scores=S,
+                          zdrop=100).cpu()
+             for d in (dev, torch.device("cpu"))]
     assert torch.equal(wires[0], wires[1])
 
 
@@ -334,6 +335,53 @@ def test_dp_tb_adiag_gather_cuda_matches_cpu(dev):
                                 scores=S).cpu()
              for d in (dev, torch.device("cpu"))]
     assert torch.equal(wires[0], wires[1])
+
+
+MM2 = ScoreParams(match=1, mismatch=2, gap_open=2, gap_ext=1)
+
+
+def _mm_wire(pair, d, scores):
+    """The wire of one chunk of a DP pair on device d."""
+    from lamsa_tpu_torch.ops.dp_chain import dp_tb_adiag_gather, dp_tb_gather
+    if pair == "row":
+        chunk = _row_chunk(np.random.default_rng(3), 256, 128, 64)
+        return dp_tb_gather(*_on(d, chunk), M=256, W=128, scores=scores,
+                            zdrop=100).cpu()
+    chunk = make_global_chunk(np.random.default_rng(4), 512, 128, 60, 64)
+    return dp_tb_adiag_gather(*_on(d, chunk), M=512, W=128,
+                              scores=scores).cpu()
+
+
+@pytest.mark.parametrize("pair", ["row", "adiag"])
+def test_mismatch_two_chunk_matches_plain(dev, pair):
+    """One chunk of each DP pair at the ONT sweep's mm2 scores (1, 2, 2,
+    1), which no other check on the card uses: the wire on the card equals
+    the plain versions' on the CPU, and differs from mismatch 3's, so the
+    score reached the kernels."""
+    got = _mm_wire(pair, dev, MM2)
+    assert torch.equal(got, _mm_wire(pair, torch.device("cpu"), MM2))
+    assert not torch.equal(got, _mm_wire(pair, dev, S))
+
+
+def test_repeat_world_on_the_card_equals_the_cpu_path(dev):
+    """tests/test_mapq.py's repeat-family world (1.5 Mb, 100 reads of 1-6
+    kb, preset("pacbio"), k = 13): SAM on the card equals the CPU path's
+    on every read, every kernel launches, and MAPQ >= 30 errs on < 1% of
+    at least 50 records."""
+    from lamsa_tpu_torch.pipeline.aln import Aligner
+    from lamsa_tpu_torch.tools import repeat_bench as rb
+    _g, ref, idx, cfg, reads = rb.repeat_world(1.5, 100,
+                                               read_len=(1000, 6000))
+    mods = _kernel_modules()
+    n0 = [m.LAUNCHES for m in mods]
+    got = rb.align(Aligner(ref, idx, cfg, device=dev), reads)
+    torch.cuda.synchronize()
+    assert min(m.LAUNCHES - n for m, n in zip(mods, n0)) > 0
+    want = rb.align(Aligner(ref, idx, cfg, device="cpu"), reads)
+    assert _sam_lines(got) == _sam_lines(want)
+    hi = [ok for m, ok in rb.mapq_calibration(got, reads) if m >= 30]
+    assert len(hi) >= 50
+    assert sum(1 for ok in hi if not ok) < 0.01 * len(hi)
 
 
 def test_wrappers_check_inputs_on_cuda(dev):

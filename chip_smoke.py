@@ -1186,9 +1186,8 @@ class ThreadStages:
     its wall and thread-CPU seconds (time.thread_time) to a row of the
     thread that ran it; dp_build_* / dp_dispatch_* / dp_collect_* fold
     into one name each. A stage whose wall is well above its CPU waited:
-    on the device, or for the interpreter lock. STATS itself is not
-    locked; under batches in flight its stage seconds overlap and sum to
-    more than the wall."""
+    on the device, or for the interpreter lock. Under batches in flight
+    STATS's stage seconds overlap and sum to more than the wall."""
 
     FOLD = ("dp_build", "dp_dispatch", "dp_collect")
 

@@ -6,9 +6,9 @@ Hopper (``csrc/``). Layout mirrors the JAX package: ``ops/`` (kernels
 and device helpers), ``pipeline/`` (seeding, DP batching, the aligner),
 ``cli.py``. The package imports nothing of ``lamsa_tpu``: the host
 modules it shares with it (config, io, index, native, sim, eval,
-pipeline/skeleton.py, utils/timers.py) are copies that name their
-source in their first line, so index files and SAM stay the JAX
-package's byte for byte.
+pipeline/skeleton.py) are copies that name their source in their
+first line, so index files and SAM stay the JAX package's byte for
+byte. ``utils/timers.py`` is the port's own span and counter recorder.
 
 Every entry point takes an explicit torch ``device``: on ``cuda`` the DP
 stages launch the kernels, on ``cpu`` they run the kernels' plain torch

@@ -342,7 +342,7 @@ def cmd_aln(args) -> int:
             return
         import json
         from lamsa_tpu_torch.utils.timers import GLOBAL as STATS
-        snap = STATS.snapshot()
+        snap = STATS.snapshot(spans=False)      # a line per batch, not spans
         snap["reads_done"] = skip + n_reads
         wall = time.time() - t0
         snap["wall_total_s"] = round(wall, 3)

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from lamsa_tpu_torch.ops.wire import U32
+from lamsa_tpu_torch.utils.transfer import to_device
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -124,8 +125,9 @@ def backward_search_1edit(win, win_ok, fm, k: int, kinds: str = "s"):
     exhausted. Returns (lo, hi) int64 of shape (…, T), (0, 0) where
     invalid or absent."""
     dev = win.device
-    typ, pos, aux, ln = (torch.from_numpy(a.astype(np.int64)).to(dev)
-                         for a in edit1_tracks(k, kinds))
+    typ, pos, aux, ln = (
+        to_device(torch.from_numpy(a.astype(np.int64)), dev)
+        for a in edit1_tracks(k, kinds))
     T = typ.shape[0]
     shape = win.shape[:-1] + (T,)
     win = win.to(torch.int64)
@@ -207,12 +209,13 @@ def fm_device_state(fm_host, device) -> dict:
         [rankcp[:, None], marks.reshape(ncp2, 2),
          np.zeros((ncp2, 1), np.uint32)], axis=1)     # 4-lane records
 
-    i64 = dict(dtype=torch.int64, device=dev)
+    i64 = dict(dtype=torch.int64)
     return {
-        "C": torch.tensor(fm_host.C.tolist(), **i64),
-        "primary": torch.tensor(int(fm_host.primary), **i64),
-        "n_rows": torch.tensor(int(fm_host.n) + 1, **i64),
-        "blk": _i32(blk).to(dev),
-        "mblk": _i32(mblk).to(dev),
-        "ssa_pos": _i32(fm_host.ssa_pos).to(dev),
+        "C": to_device(torch.tensor(fm_host.C.tolist(), **i64), dev),
+        "primary": to_device(torch.tensor(int(fm_host.primary), **i64),
+                             dev),
+        "n_rows": to_device(torch.tensor(int(fm_host.n) + 1, **i64), dev),
+        "blk": to_device(_i32(blk), dev),
+        "mblk": to_device(_i32(mblk), dev),
+        "ssa_pos": to_device(_i32(fm_host.ssa_pos), dev),
     }

@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lamsa_tpu_torch.utils.transfer import to_host
+
 U32 = 0xFFFFFFFF
 
 # The DP contract's sentinel and zdrop cadence (lamsa_tpu/ops/oracle.py
@@ -261,7 +263,7 @@ def collect_group(packed, M, topdown=False):
     nw = M // 32
     Ew = compact_words(M)
     wide = compact_wide(M)
-    packed = packed.cpu().numpy()
+    packed = to_host(packed)
     opbits = packed[:, :nw]
     events = packed[:, nw:nw + Ew]
     tail = packed[:, nw + Ew:]

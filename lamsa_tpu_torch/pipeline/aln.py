@@ -33,6 +33,7 @@ records on whichever stream, and from whichever thread, it is called.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 import os
 
@@ -63,6 +64,7 @@ from lamsa_tpu_torch.pipeline.skeleton import (anchors_to_blocks,
                                                build_skeleton)
 from lamsa_tpu_torch.pipeline.state import device_state
 from lamsa_tpu_torch.utils.timers import GLOBAL as STATS
+from lamsa_tpu_torch.utils.transfer import to_device, to_host
 
 _EXT_CAP = 2048          # longest end extension attempted (rest soft-clips)
 
@@ -92,6 +94,10 @@ def _pack_hits_chain(hits, *, weight, lookback, max_dist, diag_slack):
         f, pred = chain_hits(hits["qpos"], hits["rpos"], hits["strand"],
                              hits["valid"], weight=weight, lookback=lookback,
                              max_dist=max_dist, diag_slack=diag_slack)
+        if f.device.type == "cuda":
+            # the stage holds the loop's enqueue and its drain; only the
+            # batch's stream is waited on
+            torch.cuda.current_stream(f.device).synchronize()
     return torch.stack([
         to_i32(hits["rpos"]),
         to_i32(hits["qpos"] | (hits["strand"] << 19)
@@ -213,6 +219,7 @@ class Aligner:
                 torch.cuda.current_stream(dev).synchronize()
         self._state = self._states[self.device]
         self._grids = {}
+        self._batch_ids = itertools.count()
         self._inflight_budget = self._compute_inflight_budget() \
             if self.device.type == "cuda" else None
 
@@ -244,7 +251,12 @@ class Aligner:
 
     def align_batch(self, reads) -> list[list[SamRecord]]:
         """Align a list of FastxRecords; returns SAM records per read,
-        in input order."""
+        in input order. The batch takes the Aligner's next batch id,
+        which every stage it opens carries (utils/timers.py)."""
+        with STATS.batch(next(self._batch_ids)):
+            return self._align_batch(reads)
+
+    def _align_batch(self, reads) -> list[list[SamRecord]]:
         cfg = self.config
         out: list[list[SamRecord] | None] = [None] * len(reads)
         codes = [np.frombuffer(encode_seq(r.seq), np.uint8) for r in reads]
@@ -277,7 +289,7 @@ class Aligner:
             pos += len(c)
         flat_offs[-1] = pos
         words = torch.from_numpy(pack_codes_words(flat))
-        flat_devs = {dev: words.to(dev) for dev in self._states}
+        flat_devs = {dev: to_device(words, dev) for dev in self._states}
 
         sources = [(flat_devs[dev], self._states[dev]["ref_words"])
                    for dev in self.entries]
@@ -336,8 +348,9 @@ class Aligner:
             if a == b:
                 continue
             r = rows[a:b]
-            lens = torch.from_numpy(lens_h[r]).to(dev)
-            rc = gather_rc(flat_devs[dev], torch.from_numpy(offs[r]).to(dev),
+            lens = to_device(torch.from_numpy(lens_h[r]), dev)
+            rc = gather_rc(flat_devs[dev],
+                           to_device(torch.from_numpy(offs[r]), dev),
                            lens, L=L)
             parts.append(self._seed_chain_packed(
                 rc, lens, self._grid(L, step, dev), common, dev, sub1))
@@ -369,10 +382,9 @@ class Aligner:
                 # the stage's seconds are the device's, not the enqueue's;
                 # only this batch's stream is waited on
                 torch.cuda.current_stream(dev).synchronize()
-        return _pack_hits_chain(
+        return to_host(_pack_hits_chain(
             hits, weight=common["weight"], lookback=common["lookback"],
-            max_dist=common["max_dist"],
-            diag_slack=common["diag_slack"]).cpu().numpy()
+            max_dist=common["max_dist"], diag_slack=common["diag_slack"]))
 
     def _seed_and_chain(self, codes, idxs, L, flat_devs, flat_offs):
         """Device seeding+chaining for one read-length bucket: the (B, L)
@@ -508,12 +520,12 @@ class Aligner:
                                row_blocks(n, len(self.entries))):
             if a == b:
                 continue
-            hits = {name: torch.from_numpy(v[a:b]).to(dev)
+            hits = {name: to_device(torch.from_numpy(v[a:b]), dev)
                     for name, v in planes.items()}
-            parts.append(_pack_hits_chain(
+            parts.append(to_host(_pack_hits_chain(
                 hits, weight=common["weight"], lookback=common["lookback"],
                 max_dist=common["max_dist"],
-                diag_slack=common["diag_slack"]).cpu().numpy())
+                diag_slack=common["diag_slack"])))
         return np.concatenate(parts, axis=1)
 
     def _retry_cap(self, n_windows: int) -> int:
@@ -564,8 +576,8 @@ class Aligner:
         since a batch on another stream may read it next."""
         key = (L, step, dev)
         if key not in self._grids:
-            grid = torch.from_numpy(
-                make_qpos_grid(L, self.k, step).astype(np.int64)).to(dev)
+            grid = to_device(torch.from_numpy(
+                make_qpos_grid(L, self.k, step).astype(np.int64)), dev)
             if dev.type == "cuda":
                 torch.cuda.current_stream(dev).synchronize()
             self._grids[key] = grid

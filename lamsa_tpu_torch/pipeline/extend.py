@@ -16,10 +16,13 @@ Chunks are launched unpadded (eager torch has no compile signatures to
 keep closed) on the current CUDA stream, and an event recorded there
 after each CUDA chunk is what its collect waits on: the collect thread's
 own current stream is not the one that launched the chunk, and nothing
-else orders its copy after the kernels. With a mesh (parallel/mesh.py),
-each chunk's instances are split into contiguous ranges, one per entry;
-each range launches on its entry's device and sources, on a stream of
-its own that first waits for the uploads, with an event of its own.
+else orders its copy after the kernels. A second event, recorded before
+the chunk's first launch, gives the collect the chunk's stream time
+(``device_s`` ``dp_{M}x{W}`` of utils/timers.py). With a mesh
+(parallel/mesh.py), each chunk's instances are split into contiguous
+ranges, one per entry; each range launches on its entry's device and
+sources, on a stream of its own that first waits for the uploads, with
+events of its own.
 
 The content API (``add_global`` / ``add_extend``, the JAX package's
 signatures) takes the query and target codes themselves: they are
@@ -39,6 +42,7 @@ import torch
 
 from lamsa_tpu_torch.io.sam import OP_D, OP_I, OP_M, cigar_pairs
 from lamsa_tpu_torch.utils.timers import GLOBAL as STATS
+from lamsa_tpu_torch.utils.transfer import to_device
 from lamsa_tpu_torch.ops.dp_chain import dp_tb_adiag_gather, dp_tb_gather
 from lamsa_tpu_torch.ops.wire import a_pad, collect_group, global_lo, \
     pack_codes_words, pack_desc
@@ -140,14 +144,15 @@ def _collect_pool():
     return _POOL
 
 
-def _done_event(dev):
-    """An event recorded on dev's current stream after a chunk's launches
-    (None off CUDA, where the chunk has run when the call returns)."""
+def _timing_event(dev):
+    """A timing event recorded on dev's current stream (None off CUDA,
+    where a chunk has run when its call returns): one before a chunk's
+    first launch, one after its last, which its collect waits on."""
     if dev.type != "cuda":
         return None
-    done = torch.cuda.Event()
-    done.record(torch.cuda.current_stream(dev))
-    return done
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(dev))
+    return ev
 
 
 @dataclasses.dataclass
@@ -180,6 +185,9 @@ class DpBatcher:
         self.mesh = mesh
         self.device = device
         self.streams = {}               # mesh entry -> its CUDA stream
+        # the batch id of the thread that made the batcher, which its
+        # collects carry on the collect pool's threads
+        self.batch_id = STATS.current_batch()
         # device bytes chunks may hold between launch and collect
         # (None = unlimited); shared across concurrent batchers
         self.inflight_budget = inflight_budget
@@ -316,13 +324,13 @@ class DpBatcher:
                      else np.zeros(0, np.uint8) for parts in self._staged)
         words = [torch.from_numpy(pack_codes_words(h)) for h in host]
         if self.mesh is not None:
-            per = {d: tuple(w.to(d) for w in words)
+            per = {d: tuple(to_device(w, d) for w in words)
                    for d in distinct(self.mesh)}
             dev_src = [per[d] for d in self.mesh]
         else:
             dev = self.device_sources[0].device if self.device_sources \
                 else self.device
-            dev_src = tuple(w.to(dev) for w in words)
+            dev_src = tuple(to_device(w, dev) for w in words)
         self._content = (dev_src, host)
         self._staged = ([], [])
         self._staged_len = [0, 0]
@@ -380,7 +388,8 @@ class DpBatcher:
 
     def _collect_one(self, lch, rel_bytes):
         try:
-            self._collect(*lch)
+            with STATS.batch(self.batch_id):
+                self._collect(*lch)
         finally:
             if rel_bytes:
                 _LIMITER.release(rel_bytes)
@@ -442,8 +451,9 @@ class DpBatcher:
         """Pack a descriptor slice into the (K, 4) wire, copy it to the
         device and launch the chunk on the antidiagonal pair (adiag: all
         instances global) or the row pair (no wait). Returns the slice
-        and the launched parts [(lo, hi, wire, done event or None)]: one
-        for the whole chunk, or one per entry's range under a mesh."""
+        and the launched parts [(lo, hi, wire, start event, done event)],
+        the events None off CUDA: one for the whole chunk, or one per
+        entry's range under a mesh."""
         K = len(sl["m"])
         with STATS.stage(f"dp_build_{M}x{W}"):
             sl = dict(sl)
@@ -461,10 +471,10 @@ class DpBatcher:
         with STATS.stage(f"dp_dispatch_{M}x{W}"):
             if self.mesh is None:
                 flat_dev, ref_dev = dev_src
-                wire = self._chunk(flat_dev, ref_dev,
-                                   torch.from_numpy(desc).to(flat_dev.device),
-                                   M, W, adiag)
-                parts = [(0, K, wire, _done_event(wire.device))]
+                desc_dev = to_device(torch.from_numpy(desc), flat_dev.device)
+                start = _timing_event(flat_dev.device)
+                wire = self._chunk(flat_dev, ref_dev, desc_dev, M, W, adiag)
+                parts = [(0, K, wire, start, _timing_event(wire.device))]
             else:
                 parts = self._dispatch_split(dev_src, desc, M, W, adiag)
         return sl, M, W, parts, adiag
@@ -488,10 +498,10 @@ class DpBatcher:
                 continue
             STATS.count(f"dp_instances_entry{e}", b - a)
             flat_dev, ref_dev = dev_src[e]
-            desc_dev = torch.from_numpy(desc[a:b]).to(dev)
+            desc_dev = to_device(torch.from_numpy(desc[a:b]), dev)
             if dev.type != "cuda":
                 parts.append((a, b, self._chunk(flat_dev, ref_dev, desc_dev,
-                                                M, W, adiag), None))
+                                                M, W, adiag), None, None))
                 continue
             with torch.cuda.device(dev):
                 if e not in self.streams:
@@ -499,20 +509,25 @@ class DpBatcher:
                 s = self.streams[e]
                 s.wait_stream(torch.cuda.current_stream(dev))
                 with torch.cuda.stream(s):
+                    start = _timing_event(dev)
                     wire = self._chunk(flat_dev, ref_dev, desc_dev, M, W,
                                        adiag)
-                    done = _done_event(dev)
+                    done = _timing_event(dev)
                 for t in (flat_dev, ref_dev, desc_dev):
                     t.record_stream(s)
-            parts.append((a, b, wire, done))
+            parts.append((a, b, wire, start, done))
         return parts
 
     def _collect(self, sl, M, W, parts, topdown=False):
         from lamsa_tpu_torch import native
         res = self._results
-        for a, b, wire, done in parts:
+        for a, b, wire, start, done in parts:
             if done is not None:
                 done.synchronize()
+                # the chunk's stream time, from before its first launch
+                # to after its last
+                STATS.add_device(f"dp_{M}x{W}",
+                                 start.elapsed_time(done) / 1e3)
             elif wire.device.type == "cuda":
                 raise RuntimeError("a CUDA chunk reached the collect "
                                    "without the event of its stream")

@@ -28,13 +28,15 @@ import torch
 from lamsa_tpu_torch.index.fmindex import FmIndex
 from lamsa_tpu_torch.ops.fm import fm_device_state
 from lamsa_tpu_torch.ops.wire import pack_codes_words
+from lamsa_tpu_torch.utils.transfer import to_device
 
 
 def device_state(ref, index, device) -> dict:
     """Device tensors for a PackedReference + KmerIndex or FmIndex (see
     module docstring for the layout)."""
     dev = torch.device(device)
-    st = {"ref_words": torch.from_numpy(pack_codes_words(ref.codes)).to(dev)}
+    st = {"ref_words": to_device(
+        torch.from_numpy(pack_codes_words(ref.codes)), dev)}
     if isinstance(index, FmIndex):
         st.update(fm_device_state(index, dev))
         return st
@@ -42,12 +44,13 @@ def device_state(ref, index, device) -> dict:
     # loaded index is int64 / int32 already), not a second host copy;
     # only the uint32 keys widen
     st.update({
-        "positions": torch.from_numpy(
-            index.positions.astype(np.int64, copy=False)).to(dev),
-        "keys": torch.from_numpy(index.keys.astype(np.int64)).to(dev),
-        "starts": torch.from_numpy(
-            index.starts.astype(np.int32, copy=False)).to(dev),
-        "counts": torch.from_numpy(
-            index.counts.astype(np.int32, copy=False)).to(dev),
+        "positions": to_device(torch.from_numpy(
+            index.positions.astype(np.int64, copy=False)), dev),
+        "keys": to_device(torch.from_numpy(index.keys.astype(np.int64)),
+                          dev),
+        "starts": to_device(torch.from_numpy(
+            index.starts.astype(np.int32, copy=False)), dev),
+        "counts": to_device(torch.from_numpy(
+            index.counts.astype(np.int32, copy=False)), dev),
     })
     return st

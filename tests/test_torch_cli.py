@@ -197,6 +197,7 @@ def test_stats_jsonl_fields(world, tmp_path):
     last = lines[-1]
     assert last["reads_done"] == 8 and last["counters"]["reads"] == 8
     assert "seed_chain_device" in last["wall_s"]
+    assert "spans" not in last          # a line per batch, not its spans
     cells = sum(v for k, v in last["counters"].items()
                 if k.startswith("dp_cells_"))
     assert last["dp_cells_total"] == cells > 0

@@ -578,7 +578,7 @@ def test_cuda_chunk_collect_waits_on_its_event(dev, monkeypatch):
     b = extend.DpBatcher(S)
     wire = torch.zeros((1, 8), dtype=torch.int32, device=dev)
     with pytest.raises(RuntimeError, match="without the event"):
-        real_collect(b, {}, 128, 128, [(0, 1, wire, None)])
+        real_collect(b, {}, 128, 128, [(0, 1, wire, None, None)])
 
 
 def _sam_lines(out):

@@ -36,7 +36,8 @@ PORT_MODULES = [
     "lamsa_tpu_torch.pipeline.extend", "lamsa_tpu_torch.pipeline.seeding",
     "lamsa_tpu_torch.pipeline.skeleton", "lamsa_tpu_torch.pipeline.state",
     "lamsa_tpu_torch.sim",
-    "lamsa_tpu_torch.utils.timers", "lamsa_tpu_torch.worlds",
+    "lamsa_tpu_torch.utils.timers", "lamsa_tpu_torch.utils.transfer",
+    "lamsa_tpu_torch.worlds",
 ]
 # what the port must never load: JAX ("port") and the JAX package
 # itself, whose name lamsa_tpu_torch also starts with ("reused")

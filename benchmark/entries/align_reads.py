@@ -12,6 +12,8 @@ from the codes with the port's own ``KmerIndex.build`` /
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -32,6 +34,23 @@ def _amb_runs(codes):
     return np.stack([s, e - s], axis=1).astype(np.int64)
 
 
+def align_config(section: dict) -> AlignConfig:
+    """The configuration's ``align`` section as the port's AlignConfig:
+    ``scores`` gives ScoreParams, every other key the AlignConfig field
+    of its name (a JSON list a tuple field's tuple). A key that names no
+    field raises, so a setting the port does not have is never dropped."""
+    fields = {f.name for f in dataclasses.fields(AlignConfig)}
+    kw = {}
+    for key, value in section.items():
+        if key == "scores":
+            kw[key] = ScoreParams(**value)
+        elif key in fields:
+            kw[key] = tuple(value) if isinstance(value, list) else value
+        else:
+            raise ValueError(f"align.{key} is no field of AlignConfig")
+    return AlignConfig(**kw)
+
+
 class Entry:
     def __init__(self, config: dict, genome, device: str):
         idx = config["index"]
@@ -46,9 +65,7 @@ class Entry:
             self.index = FmIndex.build(genome.codes, idx["sa_rate"])
         else:
             raise ValueError(f"unknown index kind {idx['kind']!r}")
-        al = config["align"]
-        self.config = AlignConfig(scores=ScoreParams(**al["scores"]),
-                                  seed_step=al["seed_step"])
+        self.config = align_config(config["align"])
         self.batch = config["batch_reads"]
         self.device = torch.device(device)
         self.aligner = Aligner(self.ref, self.index, self.config,

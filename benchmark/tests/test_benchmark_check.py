@@ -88,14 +88,25 @@ def test_a_sound_tiny_run_is_correct(sound):
     assert res["check"]["record_faults"]["value"] == 0
 
 
-def test_a_cell_added_as_files_is_found(sound):
+def test_a_cell_added_as_files_is_found(sound, tiny_cell, tiny_bench):
     """tiny.tiny, its configuration, traffic, limits and the per-layer
     metric tiny.reads_seen exist only as new files and manifest entries
-    (conftest.tiny_bench); the harness finds and reads them all."""
+    (conftest.tiny_bench); the harness finds and reads them all, and the
+    manifest's readers, which list no cells, read the new cell too. A
+    run on the CPU has no device trace: its readers return nothing."""
     res, _lines = sound
-    assert res["metrics"]["tiny.reads_seen"]["value"] == 12.0
-    # the manifest's own per-layer metrics list the cells they read
-    assert "dp.cells_per_read" not in res["metrics"]
+    got = res["metrics"]
+    assert got["tiny.reads_seen"]["value"] == 12.0
+    for name in ("seeding.ms_per_read", "chaining.ms_per_read",
+                 "chaining.loop_ms_per_read", "skeleton.ms_per_read",
+                 "dp.ms_per_read", "dp.cells_per_read",
+                 "finalize.ms_per_read"):
+        assert got[name]["value"] > 0, name
+        assert got[name]["unit"] == tiny_cell.units[name]
+    traced = {m["name"] for m in run.load_json(
+        tiny_bench / "BENCHMARK.json")["per_layer"]
+        if m["source"] == "device_trace"}
+    assert traced and not traced & set(got)
 
 
 def test_the_control_is_not_correct(tiny_cell):

@@ -2,9 +2,11 @@
 refusal to run without a card."""
 
 import ast
+import dataclasses
 import json
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -35,10 +37,87 @@ def test_every_cell_loads_its_files(cell):
     assert set(c.limits) >= {"part_miss", "record_faults", "dp_gap",
                              "dp_sample"}
     assert c.limits["record_faults"]["limit"] == 0
-    assert len(c.metric_paths) == len(MANIFEST["per_layer"])
+    # a metric with no list of cells reads in every cell
+    assert set(c.metric_paths) == {m["name"] for m in MANIFEST["per_layer"]
+                                   if cell in m.get("workloads", [cell])}
     for name, path in c.metric_paths.items():
         mod = run.load_module(path, f"m_{name}")
         assert callable(mod.read)
+
+
+def test_every_listed_workload_is_a_cell():
+    for m in MANIFEST["end_to_end"] + MANIFEST["per_layer"]:
+        assert set(m.get("workloads", [])) <= set(CELLS), m["name"]
+
+
+def _named_files():
+    """The files under each of the cell directories that the manifest
+    names, each as its path below that directory."""
+    configs = [json.loads((ROOT / c["file"]).read_text())
+               for c in MANIFEST["configs"]]
+    return {
+        "configs": {Path(c["file"]).relative_to("benchmark/configs")
+                    .as_posix() for c in MANIFEST["configs"]},
+        "traffic": {f"{w['traffic']}.json" for w in MANIFEST["workloads"]},
+        "limits": {f"{w['name']}.json" for w in MANIFEST["workloads"]},
+        "metrics": {f"{m['name']}.py" for m in MANIFEST["per_layer"]},
+        "entries": {f"{c['entry']}.py" for c in configs},
+    }
+
+
+@pytest.mark.parametrize("sub", sorted(_named_files()))
+def test_every_cell_file_is_named_by_the_manifest(sub):
+    """No file of a configuration, traffic mix, cell, metric or entry
+    lies there unused: a cell a later change adds brings its own."""
+    have = {p.relative_to(BENCH / sub).as_posix()
+            for p in (BENCH / sub).rglob("*")
+            if p.is_file() and "__pycache__" not in p.parts}
+    assert have == _named_files()[sub]
+
+
+@pytest.fixture(scope="module")
+def entry():
+    return run.load_module(BENCH / "entries" / "align_reads.py",
+                           "entry_align_reads")
+
+
+def test_align_config_builds_what_the_entry_built_before(entry):
+    """ecoli_k13's section (scores, seed_step) gives, field by field, the
+    AlignConfig that the entry built from those two keys alone."""
+    al = json.loads((BENCH / "configs" / "ecoli_k13.json").read_text()
+                    )["align"]
+    assert set(al) == {"scores", "seed_step"}
+    got = entry.align_config(al)
+    want = entry.AlignConfig(scores=entry.ScoreParams(**al["scores"]),
+                             seed_step=al["seed_step"])
+    for f in dataclasses.fields(want):
+        assert getattr(got, f.name) == getattr(want, f.name), f.name
+
+
+def test_align_config_takes_every_field_of_the_section(entry):
+    got = entry.align_config({
+        "scores": {"match": 2, "gap_open": 4}, "seed_step": 6, "kmer": 15,
+        "seed_1edit_cands": 0, "adaptive_seed_gap_windows": 0,
+        "read_len_buckets": [512, 1024]})
+    assert got.scores == entry.ScoreParams(match=2, gap_open=4)
+    assert (got.seed_step, got.kmer, got.seed_1edit_cands,
+            got.adaptive_seed_gap_windows) == (6, 15, 0, 0)
+    assert got.read_len_buckets == (512, 1024)
+    assert got.max_cands_per_seed == entry.AlignConfig().max_cands_per_seed
+
+
+def test_align_config_refuses_a_key_it_has_no_field_for(entry):
+    with pytest.raises(ValueError, match="align.seed_len"):
+        entry.align_config({"scores": {}, "seed_len": 50})
+    with pytest.raises(TypeError, match="gap_close"):
+        entry.align_config({"scores": {"gap_close": 1}})
+
+
+@pytest.mark.parametrize("file", [c["file"] for c in MANIFEST["configs"]])
+def test_every_configurations_align_section_reaches_the_aligner(entry,
+                                                                file):
+    al = json.loads((ROOT / file).read_text())["align"]
+    assert isinstance(entry.align_config(al), entry.AlignConfig)
 
 
 @pytest.mark.parametrize("mix", sorted(p.stem for p in

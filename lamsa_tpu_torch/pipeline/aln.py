@@ -82,6 +82,13 @@ _RC_TRANS.update(str.maketrans("ACGTN", "TGCAN"))
 _MERGE_INV = np.int64(1) << 62
 # element budget for one adaptive-retry seeding sub-batch
 _RETRY_BUDGET_ELEMS = 16_000_000
+# plane 1's valid bit (_pack_hits_chain)
+_VALID_BIT = 20
+
+
+def _hit_valid(plane1: np.ndarray) -> np.ndarray:
+    """The valid flags of a host copy of _pack_hits_chain's plane 1."""
+    return ((plane1 >> _VALID_BIT) & 1).astype(bool)
 
 
 def _pack_hits_chain(hits, *, weight, lookback, max_dist, diag_slack):
@@ -101,7 +108,7 @@ def _pack_hits_chain(hits, *, weight, lookback, max_dist, diag_slack):
     return torch.stack([
         to_i32(hits["rpos"]),
         to_i32(hits["qpos"] | (hits["strand"] << 19)
-               | (hits["valid"].to(torch.int64) << 20)),
+               | (hits["valid"].to(torch.int64) << _VALID_BIT)),
         to_i32(f | ((pred + 1) << 19)),
     ])
 
@@ -365,8 +372,10 @@ class Aligner:
         st = self._states[dev]
         kw = dict(k=common["k"], cands_per_seed=common["cands_per_seed"],
                   max_hits=common["max_hits"])
+        fm = self.seed_backend == "fm"
+        events = [] if fm and dev.type == "cuda" else None
         with STATS.stage("seed_hits"):
-            if self.seed_backend == "kmer":
+            if not fm:
                 hits = seed_hits(rc, lens, grid, st["keys"], st["starts"],
                                  st["counts"], st["positions"], **kw)
             else:
@@ -377,14 +386,23 @@ class Aligner:
                     seg_quota=quota,
                     sub1_cands=cfg.seed_1edit_cands if sub1 else 0,
                     sub1_k=self._sub1_k() if sub1 else 0,
-                    sub1_kinds=cfg.seed_1edit_kinds, **kw)
+                    sub1_kinds=cfg.seed_1edit_kinds, events=events, **kw)
             if dev.type == "cuda":
                 # the stage's seconds are the device's, not the enqueue's;
                 # only this batch's stream is waited on
                 torch.cuda.current_stream(dev).synchronize()
-        return to_host(_pack_hits_chain(
+        for name, start, end in events or ():
+            STATS.add_device(name, start.elapsed_time(end) / 1e3)
+        packed = to_host(_pack_hits_chain(
             hits, weight=common["weight"], lookback=common["lookback"],
             max_dist=common["max_dist"], diag_slack=common["diag_slack"]))
+        if fm:
+            # the valid hits: each a candidate SA row that seed_hits_fm
+            # resolved to a position (resolve_rows walks the invalid
+            # lanes too, masked, so its time follows max_hits instead)
+            STATS.count("fm_rows_resolved",
+                        int(np.count_nonzero(_hit_valid(packed[1]))))
+        return packed
 
     def _seed_and_chain(self, codes, idxs, L, flat_devs, flat_offs):
         """Device seeding+chaining for one read-length bucket: the (B, L)
@@ -409,7 +427,7 @@ class Aligner:
         # _seed_and_chain has the measurements behind both triggers).
         amin = cfg.adaptive_seed_min_anchors
         if amin and cfg.seed_step >= 4:
-            valid = ((packed[1] >> 20) & 1).astype(bool)
+            valid = _hit_valid(packed[1])
             fbest = np.where(valid, packed[2] & 0x7FFFF, 0).max(axis=1)
             sparse = (fbest < self._amin_eff(lens_h) * self.k) \
                 & (lens_h >= self.k + cfg.seed_step * amin)
@@ -467,7 +485,7 @@ class Aligner:
             "rpos": packed[0].view(np.uint32).astype(np.int64),
             "qpos": packed[1] & 0x7FFFF,
             "strand": (packed[1] >> 19) & 1,
-            "valid": ((packed[1] >> 20) & 1).astype(bool),
+            "valid": _hit_valid(packed[1]),
             "f": packed[2] & 0x7FFFF,
             "pred": (packed[2] >> 19) - 1,
         }
@@ -487,7 +505,7 @@ class Aligner:
             q = (p[1] & 0x7FFFF).astype(np.int64)
             r = p[0].view(np.uint32).astype(np.int64)
             s = ((p[1] >> 19) & 1).astype(np.int64)
-            v = ((p[1] >> 20) & 1).astype(bool)
+            v = _hit_valid(p[1])
             return np.where(v, (s << 51) | (q << 32) | r, _MERGE_INV)
 
         key = np.sort(np.concatenate([dec(p0), dec(p1)], axis=1), axis=1)
@@ -693,7 +711,7 @@ class Aligner:
                             256, 0)
             # a unit whose q-gap + trailing anchor exceeds the largest
             # bucket M: emit the gap alone and the anchor as an explicit
-            # exact M run
+            # M run, scored base by base in finalize
             anchors_after = None
             over = mlen > MAX_BUCKET_M
             if over.any():
@@ -710,7 +728,9 @@ class Aligner:
                 for i, h in enumerate(handles):
                     gh.append(h)
                     if anchors_after[i]:
-                        gh.append(("M", int(anchors_after[i])))
+                        b = blocks[e_[i]]
+                        gh.append(("M", int(anchors_after[i]), int(b[0]),
+                                   int(b[1])))
                 return gh
 
             if part.strand == 0:
@@ -806,7 +826,6 @@ class Aligner:
         part = pp.part
         qseq = read_codes if part.strand == 0 else _revcomp_codes(read_codes)
         blocks = pp.blocks
-        match = cfg.scores.match
 
         # stitch the part's CIGAR as packed uint32 runs
         score = 0
@@ -823,17 +842,22 @@ class Aligner:
         la0 = int(blocks[0, 2])
         segs = [left.cigar[::-1],
                 np.array([(la0 << 4) | OP_M], np.uint32)]
-        score += la0 * match
+        run_score, subs = self._anchor_run_score(qseq, q0, r0, la0)
+        score += run_score
         for h in pp.gap_handles:
-            if isinstance(h, tuple):      # ("M", len): explicit anchor
-                _, ln = h                 # run after an oversize unit
+            if isinstance(h, tuple):      # ("M", len, q, r): explicit
+                _, ln, qa, ra = h         # anchor run after an oversize
                 segs.append(np.array([(ln << 4) | OP_M], np.uint32))
-                score += ln * match
+                run_score, n_sub = self._anchor_run_score(qseq, qa, ra, ln)
+                score += run_score
+                subs += n_sub
                 continue
             g = batcher.result(h)
             segs.append(g.cigar)
             score += g.score
 
+        if subs:
+            STATS.count("anchor_subs", subs)
         qe = int(blocks[-1][0] + blocks[-1][2])
         segs.append(right.cigar)
         score += right.score
@@ -874,6 +898,17 @@ class Aligner:
         return {"strand": part.strand, "pos": pos, "cigar": cigar,
                 "score": score, "nm": nm, "md": md, "mapq": mapq,
                 "read_start": rs, "read_end": re_}
+
+    def _anchor_run_score(self, qseq, q, r, n):
+        """(score, substituted bases) of an anchor run of n bases at
+        oriented read position q and reference position r, base by base
+        as the DP scores a diagonal step (a code >= 4 never matches). A
+        k-mer anchor is exact; an FM 1-edit anchor may carry a
+        substitution (ops/fm.py edit1_tracks)."""
+        sc = self.config.scores
+        a = qseq[q:q + n]
+        eq = int(np.count_nonzero((a == self.ref.codes[r:r + n]) & (a < 4)))
+        return eq * sc.match - (n - eq) * sc.mismatch, n - eq
 
     def _mapq(self, part, sk) -> int:
         """MAPQ from chain-score margin: 60 * (1 - alt/score) scaled by

@@ -11,16 +11,21 @@ k-mer backend: ``table_lookup`` binary-searches the sorted key table
 JAX package's sorted and direct-address lookups. FM backend
 (``seed_hits_fm``): backward search, per-seed candidate rows, the
 seg-quota drop and truncation on SA-row order, then SA resolve of the
-survivors only (``ops/fm.py``).
+survivors only (``ops/fm.py``). Its parts are spans of their own,
+``fm_search``, ``fm_1edit`` and ``fm_resolve``, opened inside the
+caller's ``seed_hits`` stage.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 
 from lamsa_tpu_torch.ops import fm as fmops
 from lamsa_tpu_torch.ops.wire import U32
+from lamsa_tpu_torch.utils.timers import GLOBAL as STATS
 
 _QPOS_BITS = 19                       # reads up to 512 kb
 INVALID_K1 = 1 << 24                  # > any strand << QPOS_BITS | qpos
@@ -163,9 +168,28 @@ def _seg_quota_drop(key1, L, seg_quota):
     return torch.where(drop, INVALID_K1, key1)
 
 
+@contextlib.contextmanager
+def _fm_part(name, events, dev):
+    """A span of one part of FM seeding; with ``events`` (a list, on a
+    CUDA device) also a pair of timing events on dev's current stream
+    around the part's launches, appended as (name, start, end) for the
+    caller to read once it has synchronized that stream."""
+    with STATS.stage(name):
+        if events is None:
+            yield
+            return
+        stream = torch.cuda.current_stream(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        yield
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(stream)
+        events.append((name, start, end))
+
+
 def seed_hits_fm(read_codes, read_len, qpos_grid, fm, *, k, cands_per_seed,
                  max_hits, sa_rate, seg_quota=0, sub1_cands=0, sub1_k=0,
-                 sub1_kinds="s"):
+                 sub1_kinds="s", events=None):
     """Seed hits for a batch of reads from the FM index (fm: the
     ``ops.fm.fm_device_state`` tensors). Same contract as seed_hits.
 
@@ -179,7 +203,13 @@ def seed_hits_fm(read_codes, read_len, qpos_grid, fm, *, k, cands_per_seed,
     then re-sorted on (strand | qpos, rpos). The truncation boundary
     group thus keeps the smallest SA rows, not the smallest positions,
     as in the JAX package. Invalid lanes resolve row 0 and come out as
-    position 0."""
+    position 0.
+
+    Spans ``fm_search`` (both strands' exact search), ``fm_1edit`` (the
+    variant tracks) and ``fm_resolve`` (SA resolve); the counter
+    ``fm_1edit_tracks`` counts the variant tracks searched (window x
+    track x strand). ``events``: a list that collects each part's CUDA
+    timing events (_fm_part); None off CUDA."""
     B, L = read_codes.shape
     S = qpos_grid.shape[0]
     C = cands_per_seed
@@ -188,8 +218,9 @@ def seed_hits_fm(read_codes, read_len, qpos_grid, fm, *, k, cands_per_seed,
     win, win_ok = extract_windows(read_codes, read_len, qpos_grid, k)
     win_rc = (3 - win.flip(-1)) & 3                               # revcomp
 
-    lo_f, hi_f = fmops.backward_search(win, win_ok, fm, k)
-    lo_r, hi_r = fmops.backward_search(win_rc, win_ok, fm, k)
+    with _fm_part("fm_search", events, dev):
+        lo_f, hi_f = fmops.backward_search(win, win_ok, fm, k)
+        lo_r, hi_r = fmops.backward_search(win_rc, win_ok, fm, k)
 
     offs = torch.arange(C, device=dev)[None, None, :]
     rot = seed_rotation(qpos_grid)
@@ -223,11 +254,13 @@ def seed_hits_fm(read_codes, read_len, qpos_grid, fm, *, k, cands_per_seed,
             win1, win1_ok = extract_windows(read_codes, read_len,
                                             qpos_grid, ks1)
         win1_rc = (3 - win1.flip(-1)) & 3
-        lo1f, hi1f = fmops.backward_search_1edit(win1, win1_ok, fm, ks1,
-                                                 kinds=sub1_kinds)
-        lo1r, hi1r = fmops.backward_search_1edit(win1_rc, win1_ok, fm,
-                                                 ks1, kinds=sub1_kinds)
+        with _fm_part("fm_1edit", events, dev):
+            lo1f, hi1f = fmops.backward_search_1edit(win1, win1_ok, fm, ks1,
+                                                     kinds=sub1_kinds)
+            lo1r, hi1r = fmops.backward_search_1edit(win1_rc, win1_ok, fm,
+                                                     ks1, kinds=sub1_kinds)
         T = lo1f.shape[-1]
+        STATS.count("fm_1edit_tracks", 2 * B * S * T)
         offs1 = torch.arange(C1, device=dev)[None, None, None, :]
 
         def cand1(lo, hi):
@@ -255,7 +288,8 @@ def seed_hits_fm(read_codes, read_len, qpos_grid, fm, *, k, cands_per_seed,
     rows = rows[:, :max_hits]
 
     valid = key1 < INVALID_K1
-    rpos = fmops.resolve_rows(rows, valid, fm, sa_rate)
+    with _fm_part("fm_resolve", events, dev):
+        rpos = fmops.resolve_rows(rows, valid, fm, sa_rate)
     # (key1, rpos) two-key sort as one int64 key: key1 < 2^25, rpos < 2^32
     key = torch.sort((key1 << 32) | rpos, dim=1).values
     key1, rpos = key >> 32, key & U32

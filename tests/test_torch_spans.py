@@ -1,9 +1,9 @@
 """The port's span and counter recorder (lamsa_tpu_torch/utils/timers.py)
 and the spans and counters the pipeline puts into it: span fields,
 batch ids across threads, exact sums under load, the bounded buffer,
-the clock shared with torch.profiler, the benchmark's stage shadow, and
-on the card the synchronized chain stage, DP device seconds and the
-transfer counters. The file imports no JAX; its ``cuda`` test runs on
+the clock shared with torch.profiler, the benchmark's stage shadow, the
+FM seeding parts' spans and counters, and on the card the synchronized
+chain stage, DP and FM device seconds and the transfer counters. The file imports no JAX; its ``cuda`` test runs on
 the card with
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_spans.py
@@ -133,20 +133,29 @@ def test_the_buffer_stops_at_its_bound_and_reset_empties_it():
 
 def test_spans_share_the_profilers_clock():
     """A span and a torch.profiler range opened together start within
-    1 ms of each other: spans and a trace's events are on one clock."""
+    1 ms of each other, and the span lies inside its range: spans and a
+    trace's events are on one clock. A process's first profiler session
+    stamps its first range up to about 1 ms late, so one session is
+    opened and closed before the measured one."""
     from torch.profiler import ProfilerActivity, profile, record_function
+    with profile(activities=[ProfilerActivity.CPU]):
+        with record_function("stage:throwaway"):
+            torch.ones(64).sum()
     st = StageStats()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         for i in range(5):
             with record_function(f"stage:clock{i}"), st.stage(f"clock{i}"):
                 torch.ones(64).sum()
-    rng = {e.name()[6:]: e.start_ns()
+    rng = {e.name()[6:]: (e.start_ns(), e.start_ns() + e.duration_ns())
            for e in prof.profiler.kineto_results.events()
            if e.name().startswith("stage:clock")}
-    spans = {s["name"]: s["start_ns"] for s in st.snapshot()["spans"]}
+    spans = {s["name"]: (s["start_ns"], s["end_ns"])
+             for s in st.snapshot()["spans"]}
     assert set(rng) == set(spans) == {f"clock{i}" for i in range(5)}
-    for name, t in spans.items():
-        assert abs(t - rng[name]) < 1_000_000, (name, t - rng[name])
+    for name, (t0, t1) in spans.items():
+        r0, r1 = rng[name]
+        assert abs(t0 - r0) < 1_000_000, (name, t0 - r0)
+        assert r0 <= t0 <= t1 <= r1, (name, t0 - r0, r1 - t1)
 
 
 def test_the_benchmarks_stage_shadow_still_wraps_the_stages():
@@ -223,6 +232,110 @@ def test_batch_ids_across_threads(tiny_world):
         snap["counters"])
     assert snap["device_s"] == {}
     assert snap["counters"]["reads"] == 12
+
+
+@pytest.fixture(scope="module")
+def fm_world():
+    """An 80 kb genome in the FM index and 6 reads of 1.5-3 kb at 24%
+    error, noisy enough that the adaptive re-seed runs with the 1-edit
+    variant tracks."""
+    from lamsa_tpu_torch import sim
+    from lamsa_tpu_torch.config import AlignConfig, ScoreParams
+    from lamsa_tpu_torch.index.fmindex import FmIndex
+    from lamsa_tpu_torch.io.fasta import encode_seq
+    from lamsa_tpu_torch.io.refpack import PackedReference
+    rng = np.random.default_rng(20261019)
+    genome = sim.random_genome(rng, 80_000)
+    codes = np.frombuffer(encode_seq(genome[0].seq), np.uint8)
+    ref = PackedReference(names=[genome[0].name],
+                          offsets=np.array([0, len(codes)], np.int64),
+                          codes=codes, amb_runs=np.zeros((0, 2), np.int64))
+    reads = sim.simulate_reads(rng, genome, 6, read_len=(1500, 3000),
+                               sub=0.08, ins=0.08, dele=0.08)
+    cfg = AlignConfig(scores=ScoreParams(match=1, mismatch=3, gap_open=5,
+                                         gap_ext=2), seed_step=10)
+    return ref, FmIndex.build(codes), cfg, reads
+
+
+def test_fm_spans_nest_under_seed_hits_and_count(fm_world, monkeypatch):
+    """On the FM backend every seed_hits stage holds one fm_search and
+    one fm_resolve span, and the re-seed's one fm_1edit span; the
+    counters count the rows resolved (the valid hits seed_hits_fm
+    returns) and the variant tracks searched (window x track x strand).
+    On the CPU no device second is added."""
+    from lamsa_tpu_torch.pipeline import aln, seeding
+    ref, idx, cfg, reads = fm_world
+    rows, tracks = [], []
+    real = aln.seed_hits_fm
+
+    def spy(rc, lens, grid, st, **kw):
+        hits = real(rc, lens, grid, st, **kw)
+        rows.append(int(hits["valid"].sum()))
+        if kw["sub1_cands"]:
+            T = len(seeding.fmops.edit1_tracks(kw["sub1_k"],
+                                               kw["sub1_kinds"])[0])
+            tracks.append(2 * rc.shape[0] * grid.shape[0] * T)
+        return hits
+    monkeypatch.setattr(aln, "seed_hits_fm", spy)
+    aligner = aln.Aligner(ref, idx, cfg, device="cpu")
+    assert aligner.seed_backend == "fm"
+    STATS.reset()
+    aligner.align_batch(reads)
+    snap = STATS.snapshot()
+    by = _by_name(snap)
+    seeds = {s["id"]: s for s in by["seed_hits"]}
+    assert tracks, "the re-seed did not run"
+    assert len(by["fm_search"]) == len(by["fm_resolve"]) == len(seeds)
+    assert len(by["fm_1edit"]) == len(tracks)
+    for name in ("fm_search", "fm_1edit", "fm_resolve"):
+        for s in by[name]:
+            p = seeds[s["parent"]]
+            assert p["start_ns"] <= s["start_ns"] <= s["end_ns"] \
+                <= p["end_ns"]
+            assert s["batch"] == p["batch"] is not None
+    for p in seeds.values():            # search, then variants, then resolve
+        kids = sorted((s["start_ns"], s["name"]) for s in snap["spans"]
+                      if s["parent"] == p["id"])
+        assert [n for _t, n in kids][0] == "fm_search"
+        assert [n for _t, n in kids][-1] == "fm_resolve"
+    c = snap["counters"]
+    assert c["fm_rows_resolved"] == sum(rows) > 0
+    assert c["fm_1edit_tracks"] == sum(tracks) > 0
+    assert snap["device_s"] == {}
+
+
+def test_kmer_seeding_opens_no_fm_span(tiny_world):
+    from lamsa_tpu_torch.pipeline.aln import Aligner
+    ref, idx, cfg, reads = tiny_world
+    STATS.reset()
+    Aligner(ref, idx, cfg, device="cpu").align_batch(reads[:4])
+    snap = STATS.snapshot()
+    assert not {s["name"] for s in snap["spans"]} & {
+        "fm_search", "fm_1edit", "fm_resolve"}
+    assert not {"fm_rows_resolved", "fm_1edit_tracks", "anchor_subs"} & \
+        set(snap["counters"])
+
+
+@pytest.mark.cuda
+def test_fm_device_seconds_on_the_card(fm_world):
+    """On the card each FM part adds its stream time, from CUDA events
+    read after seed_hits' synchronize, under its own name."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lamsa_tpu_torch.pipeline.aln import Aligner
+    ref, idx, cfg, reads = fm_world
+    aligner = Aligner(ref, idx, cfg, device="cuda")
+    aligner.align_batch(reads[:2])                      # warm
+    STATS.reset()
+    aligner.align_batch(reads)
+    snap = STATS.snapshot()
+    dev = snap["device_s"]
+    assert {"fm_search", "fm_1edit", "fm_resolve"} <= set(dev)
+    assert all(dev[k] > 0 for k in ("fm_search", "fm_1edit", "fm_resolve"))
+    assert snap["calls"]["fm_search"] == snap["calls"]["seed_hits"]
+    # each part's stream time lies within its seed_hits stages' wall
+    assert dev["fm_search"] + dev["fm_1edit"] + dev["fm_resolve"] <= \
+        snap["wall_s"]["seed_hits"]
 
 
 @pytest.mark.cuda

@@ -1,4 +1,6 @@
-# Copy of lamsa_tpu/index/fmindex.py; only its import lines differ.
+# Copy of lamsa_tpu/index/fmindex.py, apart from its import lines and
+# build, which gives the same arrays from index/fm_build.py: the copy's
+# suffix sort and numpy passes ran on one core.
 """FM-index: BWT + sampled Occ + sampled SA (host build, device search).
 
 The whole-genome replacement for the sorted k-mer index: GRCh38-scale
@@ -37,10 +39,6 @@ import os
 import numpy as np
 
 _META = "fm_meta.json"
-# build chunk sizes (module-level so tests can shrink them to
-# exercise chunk boundaries); SSA chunk must be 64-aligned
-_OCC_CHUNK = 64 << 20
-_SSA_CHUNK = 128 << 20
 OCC_RATE = 64                 # fixed (device rank assumes 64-base blocks)
 SA_RATE = 16                  # default; instances carry their own rate
 
@@ -73,109 +71,9 @@ class FmIndex:
 
     @classmethod
     def build(cls, codes: np.ndarray, sa_rate: int = SA_RATE) -> "FmIndex":
-        import time as _time
+        from lamsa_tpu_torch.index import fm_build
 
-        from lamsa_tpu_torch import native
-
-        t0 = _time.time()
-
-        def _phase(name):
-            import sys as _sys
-            print(f"[fmindex build] {name} ({_time.time() - t0:.0f}s)",
-                  file=_sys.stderr, flush=True)
-
-        codes = substitute_n(codes)
-        n = len(codes)
-        sa_full = native.suffix_array_full(codes)         # uint32[n+1]
-        _phase("suffix array")
-        bwt, primary = native.bwt_from_sa(codes, sa_full)  # uint8[n]
-        _phase("bwt")
-        counts = np.bincount(bwt, minlength=4).astype(np.int64)
-        C = np.zeros(5, np.int64)
-        C[1:] = np.cumsum(counts)
-        C += 1                                             # sentinel row
-
-        # pack 16 bases per uint32 — CHUNKED: a whole-array uint32
-        # upcast plus the shift temporary cost 2 x 12.4 GB at GRCh38
-        # scale, the single biggest RSS spike of the build (measured
-        # 46 GB peak round 5; ~25 GB with this loop)
-        nwords = (n + 15) // 16
-        bwt2 = np.empty(nwords, np.uint32)
-        shifts = (2 * np.arange(16, dtype=np.uint32))[None, :]
-        CHW = _OCC_CHUNK            # bases per chunk, 16-aligned
-        for s0 in range(0, n, CHW):
-            blk = bwt[s0:s0 + CHW]
-            pad = (-len(blk)) % 16
-            if pad:
-                blk = np.concatenate([blk, np.zeros(pad, np.uint8)])
-            b = blk.astype(np.uint32).reshape(-1, 16)
-            bwt2[s0 // 16:s0 // 16 + len(b)] = \
-                np.bitwise_or.reduce(b << shifts, axis=1)
-        _phase("bwt2 pack")
-
-        # occ checkpoints every OCC_RATE bwt chars — chunked so genome-
-        # scale builds (GRCh38: n = 3.1e9) avoid (4, n) temporaries
-        ncp = n // OCC_RATE + 1
-        occ = np.zeros((ncp, 4), np.uint32)
-        CH = _OCC_CHUNK
-        running = np.zeros(4, np.uint64)
-        for s0 in range(0, n, CH):
-            blk = bwt[s0:s0 + CH]
-            cp0 = s0 // OCC_RATE
-            # per-char counts within each OCC_RATE block of this chunk
-            per = np.zeros((4, (len(blk) + OCC_RATE - 1) // OCC_RATE),
-                           np.uint32)
-            for c in range(4):
-                eq = (blk == c).astype(np.uint32)
-                pad = (-len(eq)) % OCC_RATE
-                if pad:
-                    eq = np.concatenate([eq, np.zeros(pad, np.uint32)])
-                per[c] = eq.reshape(-1, OCC_RATE).sum(axis=1)
-            csum = np.cumsum(per, axis=1, dtype=np.uint64) \
-                + running[:, None]
-            hi = min(cp0 + per.shape[1], ncp - 1)
-            occ[cp0 + 1:hi + 1] = csum[:, :hi - cp0].T.astype(np.uint32)
-            running = csum[:, -1]
-        _phase("occ checkpoints")
-
-        # value-sampled SA (chunked for the same reason)
-        nr = n + 1
-        nw = (nr + 31) // 32
-        ssa_marks = np.zeros(nw, np.uint32)
-        ncp2 = nr // 64 + 1
-        ssa_rankcp = np.zeros(ncp2, np.uint32)
-        pos_chunks = []
-        total_marks = 0
-        CH2 = _SSA_CHUNK
-        wshift = np.arange(32, dtype=np.uint32)[None, :]
-        for s0 in range(0, nr, CH2):
-            sa_blk = sa_full[s0:s0 + CH2]
-            marked = (sa_blk % sa_rate) == 0
-            pos_chunks.append(sa_blk[marked].astype(np.uint32))
-            pad = (-len(marked)) % 64
-            mk = np.concatenate([marked, np.zeros(pad, bool)]) if pad \
-                else marked
-            bits = mk.reshape(-1, 32).astype(np.uint32)
-            words = np.bitwise_or.reduce(bits << wshift, axis=1)
-            # the 64-alignment pad can produce one all-zero word beyond
-            # the destination when nr % 64 is in [1, 32] — clip it
-            w0 = s0 // 32
-            words = words[:nw - w0]
-            ssa_marks[w0:w0 + len(words)] = words
-            blk_counts = mk.reshape(-1, 64).sum(axis=1, dtype=np.uint64)
-            csum2 = np.cumsum(blk_counts) + total_marks
-            cp0 = s0 // 64
-            hi2 = min(cp0 + len(blk_counts), ncp2 - 1)
-            ssa_rankcp[cp0 + 1:hi2 + 1] = \
-                csum2[:hi2 - cp0].astype(np.uint32)
-            total_marks = int(csum2[-1])
-        ssa_pos = np.concatenate(pos_chunks) if pos_chunks \
-            else np.zeros(0, np.uint32)
-        _phase("sampled SA")
-        return cls(n=n, primary=int(primary), counts=counts, C=C,
-                   bwt2=bwt2, occ=occ, ssa_marks=ssa_marks,
-                   ssa_rankcp=ssa_rankcp, ssa_pos=ssa_pos,
-                   sa_rate=sa_rate)
+        return cls(**fm_build.build(codes, sa_rate))
 
     # ------------------------------------------------------ host queries
 

@@ -1,9 +1,12 @@
 # Copy of the functions of lamsa_tpu/native/__init__.py and
 # lamsa_tpu/native/build.py that this package calls, without their
 # pure-Python fallbacks: a failed build or call raises.
-"""ctypes loader for the native host library (``lamsa_native.cpp``).
+"""ctypes loaders for the native host library (``lamsa_native.cpp``)
+and for the FM index build on every core (``fm_build.cpp``, which
+``index/fm_build.py`` drives; a library of its own, so that only a
+process that builds an FM index compiles it).
 
-The library is compiled with g++ on first use into
+Each library is compiled with g++ on first use into
 ``build/lamsa_tpu_torch/`` under the repository root (never into the
 source directory), to a temporary name and renamed into place, so
 processes that start together do not read a half-written file.
@@ -20,32 +23,35 @@ import numpy as np
 
 from lamsa_tpu_torch._build import BUILD_DIR
 
-SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                   "lamsa_native.cpp")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(_HERE, "lamsa_native.cpp")
 SO = os.path.join(BUILD_DIR, "_lamsa_native.so")
+FM_SRC = os.path.join(_HERE, "fm_build.cpp")
+FM_SO = os.path.join(BUILD_DIR, "_fm_build.so")
 
 _lib = None
+_fm_lib = None
 _load_lock = threading.Lock()
 
 MAXC_DEFAULT = 4096
 
 
-def build() -> str:
-    """Compile SRC into SO unless SO is newer; returns SO."""
-    if os.path.exists(SO) and os.path.getmtime(SO) >= os.path.getmtime(SRC):
-        return SO
+def build(src: str = SRC, so: str = SO, flags: tuple = ()) -> str:
+    """Compile src into so unless so is newer; returns so."""
+    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+        return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{SO}.{os.getpid()}.tmp"
+    tmp = f"{so}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-           SRC, "-o", tmp]
+           *flags, src, "-o", tmp]
     try:
         r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     except (OSError, subprocess.TimeoutExpired) as e:
         raise RuntimeError(f"native library build failed: {e}") from e
     if r.returncode != 0:
         raise RuntimeError(f"native library build failed:\n{r.stderr}")
-    os.replace(tmp, SO)
-    return SO
+    os.replace(tmp, so)
+    return so
 
 
 def _load():
@@ -84,6 +90,28 @@ def _load():
         lib.lamsa_bwt_from_sa.restype = ctypes.c_int64
         _lib = lib
     return _lib
+
+
+def load_fm_build():
+    """The FM build library (``fm_build.cpp``), built on first use."""
+    global _fm_lib
+    with _load_lock:
+        if _fm_lib is not None:
+            return _fm_lib
+        lib = ctypes.CDLL(build(FM_SRC, FM_SO, ("-pthread",)))
+        u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+        u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
+        i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        i32, i64 = ctypes.c_int32, ctypes.c_int64
+        lib.lamsa_fm_text.argtypes = [u8p, i64, u8p, i32]
+        lib.lamsa_fm_text.restype = None
+        lib.lamsa_fm_sais.argtypes = [u8p, u32p, i64, i32, i32]
+        lib.lamsa_fm_sais.restype = i32
+        lib.lamsa_fm_arrays.argtypes = [u8p, u32p, i64, i32, u32p, u32p,
+                                        u32p, u32p, u32p, i64, i64p, i32]
+        lib.lamsa_fm_arrays.restype = i64
+        _fm_lib = lib
+    return _fm_lib
 
 
 def available() -> bool:

@@ -2,7 +2,6 @@
 """On-card smoke test of the PyTorch/CUDA port (lamsa_tpu_torch).
 
     python3 chip_smoke.py             # one CUDA card, no arguments
-    python3 chip_smoke.py --profile   # only the profile phase (below)
     python3 chip_smoke.py --tiles     # only the walkers' tile sizes (below)
     python3 chip_smoke.py --wholegenome   # config 4 at 3.1 Gb (below)
     python3 chip_smoke.py --cards     # several cards only (below)
@@ -85,12 +84,6 @@ Phases (any failure exits non-zero without a result line):
      retry-sized batch of seed_hits_fm with seg_quota and the 1-edit
      tracks on cuda against the same call on the CPU (all four outputs
      equal; both times printed);
-  3c. batches on side streams: config-1's 512 reads at batch 64 through
-     align_reads (in order, on the default stream) and through
-     in_flight, three batches at once on worker threads, each on a
-     CUDA stream of its own (the design PERF.md section 6 measured):
-     records equal read for read, every kernel launched in each run
-     (counts set to 0 just before it), part_recall >= 0.99;
   5b. coordinates past 2^31, without an index: reference words of
      config 4's 3.1e9 random codes on the card, a chunk of 24 global gap
      fills and 24 extensions (every other one reading its target
@@ -107,13 +100,10 @@ Phases (any failure exits non-zero without a result line):
         Aligner over the mesh ["cuda:0", "cuda:0"] (two entries of one
         card, one index copy): SAM equal to phase 3's on every read,
         each kernel launched (counts set to 0 just before), DP
-        instances per entry and reads/s printed; then the same reads at
-        batch 128 through in_flight (three batches at once) over that
-        mesh, SAM equal to phase 3's; with more than one card also
-        ["cuda:0", "cuda:1"] (two real cards, reads/s beside phase 3's
-        one entry); then phase 5's timed FM reads
-        and its 28%-error set over two entries, on phase 5's index, SAM
-        equal to phase 5's;
+        instances per entry and reads/s printed; with more than one card
+        also ["cuda:0", "cuda:1"] (two real cards, reads/s beside phase
+        3's one entry); then phase 5's timed FM reads and its 28%-error
+        set over two entries, on phase 5's index, SAM equal to phase 5's;
      b. seed_hits_sharded over 2 and 4 entries of card 0 and, with more
         than one card, over ["cuda:0", "cuda:1"] and over every card, on
         the config-1 reads, equal to seed_hits; index bytes per shard
@@ -163,19 +153,6 @@ JSON summary of the kernels (per kernel: launches, max_abs_err, ms and
 plain_ms summed over the 9 phase-2 buckets, bound_ms with bound_by,
 library_ms null, e2e_ms) and the result line
 {"ok": true, "device": {...}}.
-
---profile runs set-up and then, on the same world, three timed
-align_reads passes and one under torch.profiler (device busy share,
-busiest device entries); then phases 4 and 5 for their worlds, and
-batches in flight on four runs: config-1's 512 reads at batch 64 and
-256, the 10 kb world's 512 timed reads at 256 and the FM world's 256
-at 128, each at 1, 2 and 3 batches at once (depth 1 through
-align_reads, deeper through in_flight), three passes each: reads/s
-(median, min, max), host CPU cores busy and per-thread stage seconds
-(wall and CPU) of the median pass, every pass's records equal to depth
-1's and every kernel launched; last one profiled pass at each depth on
-config-1 at batch 64 (device busy share). Its last line is a JSON
-object {"profile": ...}.
 
 --wholegenome runs set-up and then config 4 whole: all 24 chromosomes
 of the genome of tools/wholegenome_bench.py (3.1 Gb, 8 N runs per
@@ -242,7 +219,6 @@ import json
 import os
 import subprocess
 import sys
-import threading
 import time
 
 import numpy as np
@@ -269,7 +245,6 @@ N_ONT = 48                          # --tools (b): reads per cell
 ONT_CHECK_ROWS = ("step8,mm2", "step6,mm2", "fm+1edit(ont)")
 SOAK_READS, SOAK_BATCH, SOAK_KILL = 20000, 256, 0.5    # --tools (c)
 SOAK_SCAN = 8           # soak batches searched for one reaching (5120, 256)
-DEPTHS, N_DEPTH_PASSES = (1, 2, 3), 3   # batches at once (in_flight)
 
 
 def fail(msg: str) -> None:
@@ -1124,7 +1099,7 @@ def phase_e2e(dev, card, world):
         f"pair and on the antidiagonal pair ({adiag[True]} adiag DP "
         f"launches)")
     e2e_ms["compact_encode"] = enc_ms
-    return launches, rps, e2e_ms, out, aligner
+    return launches, rps, e2e_ms, out
 
 
 def phase_10kb(dev, card, world):
@@ -1178,194 +1153,7 @@ def phase_10kb(dev, card, world):
     log(f"10 kb SAM of the first {N_SAM_CHECK_10KB} timed reads "
         f"({len(sam_gpu)} records) is byte-identical between cuda and the "
         f"cpu plain path ({time.perf_counter() - t0:.1f} s on the cpu)")
-    return out, a10, timed
-
-
-class ThreadStages:
-    """Per-thread stage seconds. While active, every STATS.stage also adds
-    its wall and thread-CPU seconds (time.thread_time) to a row of the
-    thread that ran it; dp_build_* / dp_dispatch_* / dp_collect_* fold
-    into one name each. A stage whose wall is well above its CPU waited:
-    on the device, or for the interpreter lock. Under batches in flight
-    STATS's stage seconds overlap and sum to more than the wall."""
-
-    FOLD = ("dp_build", "dp_dispatch", "dp_collect")
-
-    def __enter__(self):
-        from lamsa_tpu_torch.utils.timers import GLOBAL as STATS
-        self.stats, self.rows = STATS, {}
-        lock = threading.Lock()
-        inner = type(STATS).stage.__get__(STATS)
-
-        @contextlib.contextmanager
-        def stage(name):
-            w0, c0 = time.perf_counter(), time.thread_time()
-            try:
-                with inner(name):
-                    yield
-            finally:
-                w = time.perf_counter() - w0
-                c = time.thread_time() - c0
-                fam = next((f for f in self.FOLD if name.startswith(f)),
-                           name)
-                key = (threading.current_thread().name, fam)
-                with lock:
-                    row = self.rows.setdefault(key, [0.0, 0.0, 0])
-                    row[0] += w
-                    row[1] += c
-                    row[2] += 1
-
-        STATS.stage = stage
-        return self
-
-    def __exit__(self, *exc):
-        del self.stats.stage
-
-    def table(self):
-        """{thread: {stage: [wall s, cpu s, calls]}}"""
-        out = {}
-        for (t, st), row in sorted(self.rows.items()):
-            out.setdefault(t, {})[st] = [round(row[0], 4), round(row[1], 4),
-                                         row[2]]
-        return out
-
-
-def in_flight(aligner, reads, batch, depth):
-    """Batches in flight, the JAX package's align_reads(pipeline=N) the
-    card's way (measured slower than one batch at every depth, PERF.md
-    section 6, so the port's align_reads runs batches in order): `depth`
-    worker threads; batch k runs in slot k % depth and is submitted only
-    after batch k - depth has returned; each slot holds a CUDA stream
-    per card of the aligner's entries, which the worker enters itself
-    (the current stream is per thread) before align_batch. Returns the
-    records per read in input order."""
-    import concurrent.futures as cf
-
-    import torch
-
-    cards = [d for d in dict.fromkeys(aligner.entries) if d.type == "cuda"]
-    slots = [[torch.cuda.Stream(d) for d in cards] for _ in range(depth)]
-
-    def run(part, k):
-        with contextlib.ExitStack() as stack:
-            for st in slots[k % depth]:
-                stack.enter_context(torch.cuda.stream(st))
-            return aligner.align_batch(part)
-
-    out, futs = [], collections.deque()
-    with cf.ThreadPoolExecutor(depth, thread_name_prefix="align-batch") as ex:
-        for k, i in enumerate(range(0, len(reads), batch)):
-            futs.append(ex.submit(run, reads[i:i + batch], k))
-            if len(futs) >= depth:
-                out.extend(futs.popleft().result())
-        while futs:
-            out.extend(futs.popleft().result())
     return out
-
-
-def depth_pass(aligner, reads, batch, depth):
-    """One pass at `depth` batches at once (1: align_reads; more:
-    in_flight), with the launch counts set to 0 just before and read
-    just after. Returns (records, wall s, process CPU s, launches,
-    per-thread stages)."""
-    import torch
-
-    from lamsa_tpu_torch.pipeline.aln import align_reads
-
-    launch_counts(reset=True)
-    with ThreadStages() as ts:
-        t0, c0 = time.perf_counter(), time.process_time()
-        if depth == 1:
-            out = list(align_reads(aligner.ref, aligner.index, reads,
-                                   aligner.config, batch_size=batch,
-                                   aligner=aligner))
-        else:
-            out = in_flight(aligner, reads, batch, depth)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        cpu = time.process_time() - c0
-    return out, wall, cpu, launch_counts(), ts.table()
-
-
-def phase_inflight(card, aligner, reads):
-    """Phase 3c: config-1's reads at batch 64, one pass through
-    align_reads and one through in_flight at depth DEPTHS[-1]: records
-    equal read for read, every kernel launched in each pass, part_recall
-    >= 0.99. One pass each: the reads/s printed are not a comparison
-    (--profile makes that)."""
-    from lamsa_tpu_torch.eval import evaluate
-
-    t0 = time.perf_counter()
-    got = {}
-    for depth in (1, DEPTHS[-1]):
-        out, wall, _cpu, lc, _th = depth_pass(aligner, reads, 64, depth)
-        if min(lc.values()) <= 0:
-            fail(f"phase 3c depth {depth}: a kernel was never launched: "
-                 f"{lc}")
-        got[depth] = [sam_lines([recs]) for recs in out]
-        log(f"phase 3c: config-1 at batch 64, {depth} batch(es) at once: "
-            f"{len(reads) / wall:.2f} reads/s (one pass); launches {lc}")
-        if depth == 1:
-            ev = evaluate(out, reads)
-            if ev.part_recall < 0.99:
-                fail(f"phase 3c: part_recall {ev.part_recall:.4f} < 0.99")
-    want, sam = got[1], got[DEPTHS[-1]]
-    if len(want) != len(reads) or sam != want:
-        bad = next((i for i, (a, b) in enumerate(zip(sam, want))
-                    if a != b), -1)
-        fail(f"phase 3c: records at depth {DEPTHS[-1]} differ from depth "
-             f"1's (reads {len(sam)} vs {len(want)}, first differing read "
-             f"{bad})")
-    log(f"phase 3c passed in {time.perf_counter() - t0:.1f} s: records at "
-        f"depth {DEPTHS[-1]} on side streams = depth 1's on all "
-        f"{len(reads)} reads; part_recall {ev.part_recall:.4f}; on {card}")
-
-
-def inflight_grid(card, runs):
-    """--profile: each run (name, aligner, reads, batch), after its warm
-    batch, at every depth of DEPTHS, N_DEPTH_PASSES passes each: reads/s
-    (median, min, max), host CPU cores busy (process CPU s / wall s) and
-    per-thread stage seconds of the median pass. Every pass's records
-    must equal depth 1's first pass read for read, every kernel must
-    launch in every pass. Returns {run: {depth: numbers}}."""
-    t_grid = time.perf_counter()
-    table = {}
-    for name, aligner, reads, batch in runs:
-        want = None
-        table[name] = {}
-        for depth in DEPTHS:
-            passes = []
-            for _ in range(N_DEPTH_PASSES):
-                out, wall, cpu, lc, th = depth_pass(aligner, reads, batch,
-                                                    depth)
-                if min(lc.values()) <= 0:
-                    fail(f"{name} depth {depth}: a kernel was never "
-                         f"launched: {lc}")
-                sam = [sam_lines([recs]) for recs in out]
-                want = want or sam
-                if len(sam) != len(reads) or sam != want:
-                    fail(f"{name} depth {depth}: records differ from "
-                         f"depth 1's")
-                passes.append((len(reads) / wall, wall, cpu / wall, lc, th))
-            passes.sort(key=lambda p: p[0])
-            rps = [p[0] for p in passes]
-            med = passes[len(passes) // 2]
-            table[name][depth] = {
-                "reads_per_s": {"median": med[0], "min": rps[0],
-                                "max": rps[-1]},
-                "host_cores_busy": med[2], "launches": med[3],
-                "threads": med[4]}
-            log(f"{name} (batch {batch}, {len(reads)} reads) depth {depth}: "
-                f"reads/s median {med[0]:.2f} min {rps[0]:.2f} max "
-                f"{rps[-1]:.2f}; host cores busy {med[2]:.3f}; launches "
-                f"{med[3]}; records = depth 1's on every read")
-            log(f"  per-thread stages of the median pass (wall s, cpu s, "
-                f"calls): {json.dumps(med[4])}")
-    best = {name: max(DEPTHS, key=lambda d: t[d]["reads_per_s"]["median"])
-            for name, t in table.items()}
-    log(f"batches in flight: {time.perf_counter() - t_grid:.1f} s; best "
-        f"depth by median reads/s per run: {best} on {card}")
-    return table
 
 
 def dp_buckets(counters):
@@ -1593,7 +1381,7 @@ def phase_fm(dev, card):
         f"on all four outputs ({int(want['valid'].sum())} valid hits); "
         f"{ms:.2f} ms on the card, {cpu_ms:.1f} ms on the host cpu")
     return dict(ref=ref, fmi=fmi, cfg=cfg, timed=timed, out=out, rps=rps,
-                hreads=hreads, ont=ont, out_h=out_h, aligner=aligner)
+                hreads=hreads, ont=ont, out_h=out_h)
 
 
 def phase_coords(dev, scores):
@@ -1795,7 +1583,8 @@ def phase_wholegenome(dev, card, n_chrom=WG_N_CHROM_RUN):
         "seed_densified_reads", 0)
     nums["dp_buckets"] = {k[len("dp_instances_"):]: v
                           for k, v in sorted(STATS.counters.items())
-                          if k.startswith("dp_instances_")}
+                          if k.startswith("dp_instances_")
+                          and not k.startswith("dp_instances_entry")}
     log(f"timed: {len(timed)} reads in {wall:.3f} s = "
         f"{nums['timed_reads_per_s']:.2f} reads/s (align_reads, batch "
         f"{FM_BATCH}) on {card}; warm batch {nums['warm_batch_s']:.2f} s; "
@@ -1957,20 +1746,6 @@ def phase_mesh(card, world, out3, rps3, fm):
                   f"config-1 over {entries} vs one entry (phase 3)")
         log(f"config-1 SAM over {entries} is byte-identical to phase 3's "
             f"one-entry SAM on all {len(reads)} reads")
-        if entries == meshes[0]:
-            # batches in flight over the mesh: each batch's entry streams
-            # wait on its own slot stream
-            out_d, wall_d, _, lc_d, _ = depth_pass(aligner, reads, 128,
-                                                   DEPTHS[-1])
-            if min(lc_d.values()) <= 0:
-                fail(f"a kernel was never launched over {entries} at "
-                     f"depth {DEPTHS[-1]}: {lc_d}")
-            check_sam(sam_lines(out_d), sam_lines(out3),
-                      f"config-1 over {entries} at depth {DEPTHS[-1]} vs "
-                      f"one entry at depth 1 (phase 3)")
-            log(f"config-1 over {entries}, batch 128, {DEPTHS[-1]} batches "
-                f"in flight: SAM = phase 3's on all {len(reads)} reads; "
-                f"{len(reads) / wall_d:.2f} reads/s; launches {lc_d}")
         if launches is None:
             launches = lc
         outs.append(out)
@@ -2536,103 +2311,6 @@ def phase_steps():
         f"instances, replicated and sharded index)")
 
 
-def busy_share(prof, wall):
-    """(device busy s, busy share of wall, device events, the ten
-    busiest device entries [name, ms, calls]) of a torch.profiler run:
-    the union of the device events' intervals."""
-    from torch.autograd import DeviceType
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    busy_us, end, by_name = 0.0, float("-inf"), {}
-    for s, e, name in spans:
-        busy_us += max(0.0, e - max(s, end))
-        end = max(end, e)
-        t, n = by_name.get(name, (0.0, 0))
-        by_name[name] = (t + e - s, n + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    return (busy_us / 1e6, busy_us / 1e6 / wall, len(spans),
-            [[name[:80], t / 1e3, n] for name, (t, n) in top])
-
-
-def phase_profile(dev, card, runs: int = 3):
-    """--profile: `runs` timed align_reads passes over the config-1
-    world (reads/s, seeding and chain_hits seconds), then one pass under
-    torch.profiler: the device busy share is the union of the device
-    events' intervals over that pass's wall. Then phases 4 and 5 for
-    their worlds, the batches-in-flight grid on four runs
-    (inflight_grid) and, on config-1 at batch 64, one profiled pass at
-    each depth of DEPTHS: the device busy share (device activity only)
-    beside the median wall of the grid's passes."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from lamsa_tpu_torch.pipeline.aln import Aligner, align_reads
-    from lamsa_tpu_torch.utils.timers import GLOBAL as STATS
-    from lamsa_tpu_torch.worlds import build_world
-
-    world = build_world()
-    _genome, ref, idx, cfg, reads = world
-    aligner = Aligner(ref, idx, cfg, device=dev)
-    aligner.align_batch(reads[:256])
-    torch.cuda.synchronize()
-
-    def run():
-        STATS.reset()
-        t0 = time.perf_counter()
-        list(align_reads(ref, idx, reads, cfg, batch_size=256,
-                         aligner=aligner))
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    rows = []
-    for _ in range(runs):
-        wall = run()
-        chain = STATS.wall.get("chain_hits", 0.0)
-        rows.append({"reads_per_s": len(reads) / wall, "wall_s": wall,
-                     "seeding_s": STATS.wall.get("seed_chain_device", 0.0)
-                     - chain, "chain_hits_s": chain})
-        log(f"profile run: {rows[-1]}")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        pwall = run()
-    busy, share, n_ev, top = busy_share(prof, pwall)
-    walls = sorted(r["wall_s"] for r in rows)
-    out = {"card": card, "runs": rows, "profiled_wall_s": pwall,
-           "device_busy_s": busy, "busy_share_profiled": share,
-           "busy_share_vs_median_wall": busy / walls[len(walls) // 2],
-           "device_events": n_ev, "top_device_entries_ms_calls": top}
-    log("device busy share: " + json.dumps(
-        {k: out[k] for k in ("device_busy_s", "profiled_wall_s",
-                             "busy_share_profiled",
-                             "busy_share_vs_median_wall")}))
-    for name, ms, n in out["top_device_entries_ms_calls"]:
-        log(f"  {ms:10.3f} ms  x{n:<6} {name}")
-
-    _out4, a10, timed10 = phase_10kb(dev, card, world)
-    fm = phase_fm(dev, card)
-    grid = inflight_grid(card, [
-        ("config-1 b64", aligner, reads, 64),
-        ("config-1 b256", aligner, reads, 256),
-        ("10 kb b256", a10, timed10, 256),
-        (f"FM b{FM_BATCH}", fm["aligner"], fm["timed"], FM_BATCH)])
-    for depth in DEPTHS:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            _o, pw, _c, _lc, _th = depth_pass(aligner, reads, 64, depth)
-        busy, share, _n, top = busy_share(prof, pw)
-        row = grid["config-1 b64"][depth]
-        med_wall = len(reads) / row["reads_per_s"]["median"]
-        row.update({"profiled_wall_s": pw, "device_busy_s": busy,
-                    "busy_share_profiled": share,
-                    "busy_share_vs_median_wall": busy / med_wall,
-                    "top_device_entries_ms_calls": top[:3]})
-        log(f"config-1 batch 64, depth {depth}: device busy {busy:.4f} s = "
-            f"{share:.4f} of the profiled wall, {busy / med_wall:.4f} of "
-            f"the median wall; on {card}")
-    out["batches_in_flight"] = grid
-    return out
-
-
 def phase_tiles(dev, scores):
     """--tiles: both walkers' times by tile shape. The direction words
     come once from the DP kernels on the phase-2 recipes; then, per
@@ -3159,9 +2837,6 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
-    if sys.argv[1:] == ["--profile"]:
-        print(json.dumps({"profile": phase_profile(dev, card)}), flush=True)
-        return 0
     from lamsa_tpu_torch.worlds import build_world
     scores = ScoreParams(match=1, mismatch=3, gap_open=2, gap_ext=1)
     if sys.argv[1:] == ["--tiles"]:
@@ -3184,16 +2859,15 @@ def main() -> int:
     t0 = time.perf_counter()
     world = build_world()
     log(f"config-1 world built in {time.perf_counter() - t0:.1f} s")
-    launches, rps3, e2e_ms, out3, a1 = phase_e2e(dev, card, world)
+    launches, rps3, e2e_ms, out3 = phase_e2e(dev, card, world)
     ref1 = world[1]
     checks = [("phase 3", out3, ref1)]
     if not cards_only:
         launches_repeat = phase_repeat(dev, card)
-        out4, _a10, _timed10 = phase_10kb(dev, card, world)
+        out4 = phase_10kb(dev, card, world)
         checks.append(("phase 4", out4, ref1))
     fm = phase_fm(dev, card)
     if not cards_only:
-        phase_inflight(card, a1, world[4])
         phase_coords(dev, scores)
     t6 = time.perf_counter()
     launches_mesh, outs6, two_cards = phase_mesh(card, world, out3, rps3, fm)

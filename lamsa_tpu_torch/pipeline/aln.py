@@ -300,13 +300,11 @@ class Aligner:
 
         sources = [(flat_devs[dev], self._states[dev]["ref_words"])
                    for dev in self.entries]
-        batcher = DpBatcher(cfg.scores,
-                            device_sources=sources if self.mesh
-                            else sources[0],
+        batcher = DpBatcher(cfg.scores, device_sources=sources,
                             host_sources=(flat, self.ref.codes),
                             min_band=cfg.band_width,
                             inflight_budget=self._inflight_budget,
-                            mesh=self.mesh)
+                            mesh=self.entries)
         pending: list[tuple[int, list[_PendingPart], object]] = []
 
         for L, idxs in sorted(groups.items()):
@@ -925,26 +923,14 @@ class Aligner:
 def align_reads(ref: PackedReference, index: KmerIndex | FmIndex, reads,
                 config: AlignConfig | None = None,
                 batch_size: int | None = None,
-                pipeline: int | None = None,
                 aligner: "Aligner | None" = None,
                 device="cuda", mesh=None):
     """Align an iterable of reads, yielding SAM record lists per read in
-    input order, one batch at a time.
-
-    pipeline — the JAX package's batches in flight, accepted for its
-    callers; the port runs its batches in order at every depth (the
-    records are the same at every depth). Batches in flight on a worker
-    thread and a CUDA stream each were slower than one at every depth
-    tried (``chip_smoke.py --profile``, PERF.md section 6): on an NVIDIA
-    H100 80GB HBM3 at 700.00 W, median reads/s at depths 1 / 2 / 3 were
-    51.78 / 29.58 / 17.05 (config-1, batch 64), 227.36 / 116.84 / 98.72
-    (batch 256), 374.52 / 158.81 / 170.84 (10 kb reads) and 122.64 /
-    85.43 / 77.28 (FM world).
+    input order, one batch at a time on the caller's thread.
 
     aligner — reuse a prepared Aligner (keeps the device state); its
     device or mesh then decides. mesh — device entries for data
     parallelism (Aligner)."""
-    del pipeline
     cfg = config or AlignConfig()
     aligner = aligner or Aligner(ref, index, cfg, device=device, mesh=mesh)
     bs = batch_size or cfg.batch_reads

@@ -12,17 +12,18 @@ Each chunk's compact wire is decoded natively on a small collect pool
 (adiag chunks with topdown events); instances whose device event list
 overflowed are recomputed on the host with ``native.banded_sw_tb``.
 
-Chunks are launched unpadded (eager torch has no compile signatures to
-keep closed) on the current CUDA stream, and an event recorded there
-after each CUDA chunk is what its collect waits on: the collect thread's
-own current stream is not the one that launched the chunk, and nothing
-else orders its copy after the kernels. A second event, recorded before
-the chunk's first launch, gives the collect the chunk's stream time
-(``device_s`` ``dp_{M}x{W}`` of utils/timers.py). With a mesh
-(parallel/mesh.py), each chunk's instances are split into contiguous
-ranges, one per entry; each range launches on its entry's device and
-sources, on a stream of its own that first waits for the uploads, with
-events of its own.
+The batcher runs over entries (parallel/mesh.py); one device is a mesh
+of one entry. Each chunk's instances are split into contiguous ranges,
+one per entry (``row_blocks``; one entry takes the whole chunk), and
+each range launches unpadded (eager torch has no compile signatures to
+keep closed) on its entry's device and sources. With one entry a CUDA
+range runs on the current stream; with several, each entry's range runs
+on a stream of its own that first waits for the uploads. An event
+recorded after each CUDA range is what its collect waits on: the
+collect thread's own current stream is not the one that launched the
+range, and nothing else orders its copy after the kernels. A second
+event, recorded before the range's first launch, gives the collect its
+stream time (``device_s`` ``dp_{M}x{W}`` of utils/timers.py).
 
 The content API (``add_global`` / ``add_extend``, the JAX package's
 signatures) takes the query and target codes themselves: they are
@@ -46,7 +47,8 @@ from lamsa_tpu_torch.utils.transfer import to_device
 from lamsa_tpu_torch.ops.dp_chain import dp_tb_adiag_gather, dp_tb_gather
 from lamsa_tpu_torch.ops.wire import a_pad, collect_group, global_lo, \
     pack_codes_words, pack_desc
-from lamsa_tpu_torch.parallel.mesh import distinct, row_blocks
+from lamsa_tpu_torch.parallel.mesh import distinct, make_mesh, \
+    row_blocks
 
 # (max query length, band width) buckets; instances pick the first
 # bucket that fits (lamsa_tpu/pipeline/extend.py BUCKETS).
@@ -180,11 +182,19 @@ class DpBatcher:
                  min_band: int = 0, inflight_budget: int | None = None,
                  mesh=None, device="cuda"):
         self.scores = scores
-        self.device_sources = device_sources
+        # one form for every batcher: the entries each chunk is split
+        # over (one device is a mesh of one entry) and, with device
+        # sources, one (flat_read_words, ref_words) pair per entry
+        if mesh is not None:
+            self.entries = make_mesh(mesh)
+            self.entry_sources = device_sources
+        else:
+            self.entry_sources = None if device_sources is None \
+                else [device_sources]
+            self.entries = (torch.device(device) if device_sources is None
+                            else device_sources[0].device,)
         self.host_sources = host_sources
-        self.mesh = mesh
-        self.device = device
-        self.streams = {}               # mesh entry -> its CUDA stream
+        self.streams = {}       # entry -> its CUDA stream (several entries)
         # the batch id of the thread that made the batcher, which its
         # collects carry on the collect pool's threads
         self.batch_id = STATS.current_batch()
@@ -292,7 +302,7 @@ class DpBatcher:
         sources where both are given and it has device sources, else as
         descriptors into the staged contents."""
         if qd is not None and td is not None \
-                and self.device_sources is not None:
+                and self.entry_sources is not None:
             return self._add_one(kind, len(q), len(t), qd, td, **kw)
         offs = list(self._staged_len)
         if len(q) and len(t):       # zero-length instances resolve at once
@@ -318,26 +328,20 @@ class DpBatcher:
         return self._add_content("extend", q, t, qd, td, bonus=to_end_bonus)
 
     def _upload_staged(self):
-        """Pack the staged contents into code words on the device(s) the
-        chunks run on (once per distinct device under a mesh)."""
+        """Pack the staged contents into code words on the devices the
+        chunks run on, once per distinct device of the entries."""
         host = tuple(np.concatenate(parts) if parts
                      else np.zeros(0, np.uint8) for parts in self._staged)
         words = [torch.from_numpy(pack_codes_words(h)) for h in host]
-        if self.mesh is not None:
-            per = {d: tuple(to_device(w, d) for w in words)
-                   for d in distinct(self.mesh)}
-            dev_src = [per[d] for d in self.mesh]
-        else:
-            dev = self.device_sources[0].device if self.device_sources \
-                else self.device
-            dev_src = tuple(to_device(w, dev) for w in words)
-        self._content = (dev_src, host)
+        per = {d: tuple(to_device(w, d) for w in words)
+               for d in distinct(self.entries)}
+        self._content = ([per[d] for d in self.entries], host)
         self._staged = ([], [])
         self._staged_len = [0, 0]
 
     def _sources(self, src):
-        """(device sources, host sources) of source set src."""
-        return (self.device_sources, self.host_sources) if src == 0 \
+        """(per-entry device sources, host sources) of source set src."""
+        return (self.entry_sources, self.host_sources) if src == 0 \
             else self._content
 
     def _materialize(self, c, i):
@@ -371,9 +375,8 @@ class DpBatcher:
     def _launch(self, dispatch, M, W, adiag, futs):
         """Launch one chunk under the in-flight budget and hand its
         collect to the decode pool."""
-        est = _chunk_inflight_bytes(M, W, adiag)
-        if self.mesh is not None:
-            est //= len(self.mesh)          # each entry holds its range
+        # each entry holds its range
+        est = _chunk_inflight_bytes(M, W, adiag) // len(self.entries)
         bud = self.inflight_budget
         if bud:
             _LIMITER.acquire(est, bud)
@@ -448,12 +451,13 @@ class DpBatcher:
             f.result()          # propagate any worker exception
 
     def _dispatch_cols(self, sl, M, W, adiag=False):
-        """Pack a descriptor slice into the (K, 4) wire, copy it to the
-        device and launch the chunk on the antidiagonal pair (adiag: all
-        instances global) or the row pair (no wait). Returns the slice
-        and the launched parts [(lo, hi, wire, start event, done event)],
-        the events None off CUDA: one for the whole chunk, or one per
-        entry's range under a mesh."""
+        """Pack a descriptor slice into the (K, 4) wire and launch the
+        chunk on the antidiagonal pair (adiag: all instances global) or
+        the row pair (no wait), in contiguous ranges, one per entry: each
+        range's wire is copied to its entry's device and launched there
+        on its sources. Returns the slice and the launched parts
+        [(lo, hi, wire, start event, done event)], the events None off
+        CUDA."""
         K = len(sl["m"])
         with STATS.stage(f"dp_build_{M}x{W}"):
             sl = dict(sl)
@@ -468,16 +472,45 @@ class DpBatcher:
         if adiag:
             STATS.count("dp_adiag_instances", K)
         dev_src = self._sources(int(sl["src"][0]))[0]
+        parts = []
         with STATS.stage(f"dp_dispatch_{M}x{W}"):
-            if self.mesh is None:
-                flat_dev, ref_dev = dev_src
-                desc_dev = to_device(torch.from_numpy(desc), flat_dev.device)
-                start = _timing_event(flat_dev.device)
-                wire = self._chunk(flat_dev, ref_dev, desc_dev, M, W, adiag)
-                parts = [(0, K, wire, start, _timing_event(wire.device))]
-            else:
-                parts = self._dispatch_split(dev_src, desc, M, W, adiag)
+            for e, (dev, (a, b)) in enumerate(zip(
+                    self.entries, row_blocks(K, len(self.entries)))):
+                if a == b:
+                    continue
+                STATS.count(f"dp_instances_entry{e}", b - a)
+                flat_dev, ref_dev = dev_src[e]
+                desc_dev = to_device(torch.from_numpy(desc[a:b]), dev)
+                if dev.type != "cuda":
+                    parts.append((a, b, self._chunk(
+                        flat_dev, ref_dev, desc_dev, M, W, adiag), None,
+                        None))
+                    continue
+                with torch.cuda.device(dev):
+                    s = self._entry_stream(e, dev)
+                    with torch.cuda.stream(s):      # None: current stream
+                        start = _timing_event(dev)
+                        wire = self._chunk(flat_dev, ref_dev, desc_dev, M,
+                                           W, adiag)
+                        done = _timing_event(dev)
+                    if s is not None:
+                        for t in (flat_dev, ref_dev, desc_dev):
+                            t.record_stream(s)
+                parts.append((a, b, wire, start, done))
         return sl, M, W, parts, adiag
+
+    def _entry_stream(self, e, dev):
+        """The stream entry e's CUDA range runs on: None (dev's current
+        stream) when the batcher has one entry; else a stream of the
+        entry's own, which first waits on dev's current stream, where
+        the range's inputs were uploaded."""
+        if len(self.entries) == 1:
+            return None
+        if e not in self.streams:
+            self.streams[e] = torch.cuda.Stream(dev)
+        s = self.streams[e]
+        s.wait_stream(torch.cuda.current_stream(dev))
+        return s
 
     def _chunk(self, flat_dev, ref_dev, desc_dev, M, W, adiag):
         if adiag:
@@ -485,38 +518,6 @@ class DpBatcher:
                                       scores=self.scores)
         return dp_tb_gather(flat_dev, ref_dev, desc_dev, M=M, W=W,
                             scores=self.scores, zdrop=self.scores.zdrop)
-
-    def _dispatch_split(self, dev_src, desc, M, W, adiag):
-        """One chunk's instances in contiguous ranges over the mesh. A
-        CUDA range runs on its entry's stream after the uploads on the
-        device's current stream; its inputs are marked in use by that
-        stream, and an event marks its end for the collect."""
-        parts = []
-        for e, (dev, (a, b)) in enumerate(zip(
-                self.mesh, row_blocks(len(desc), len(self.mesh)))):
-            if a == b:
-                continue
-            STATS.count(f"dp_instances_entry{e}", b - a)
-            flat_dev, ref_dev = dev_src[e]
-            desc_dev = to_device(torch.from_numpy(desc[a:b]), dev)
-            if dev.type != "cuda":
-                parts.append((a, b, self._chunk(flat_dev, ref_dev, desc_dev,
-                                                M, W, adiag), None, None))
-                continue
-            with torch.cuda.device(dev):
-                if e not in self.streams:
-                    self.streams[e] = torch.cuda.Stream(dev)
-                s = self.streams[e]
-                s.wait_stream(torch.cuda.current_stream(dev))
-                with torch.cuda.stream(s):
-                    start = _timing_event(dev)
-                    wire = self._chunk(flat_dev, ref_dev, desc_dev, M, W,
-                                       adiag)
-                    done = _timing_event(dev)
-                for t in (flat_dev, ref_dev, desc_dev):
-                    t.record_stream(s)
-            parts.append((a, b, wire, start, done))
-        return parts
 
     def _collect(self, sl, M, W, parts, topdown=False):
         from lamsa_tpu_torch import native

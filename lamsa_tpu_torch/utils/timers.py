@@ -19,7 +19,7 @@ a lock: DP collects and ``-t N`` finalize run on threads of their own.
 
 ``stage`` is looked up on the instance, so a caller may shadow it there
 with a one-argument function that wraps the class's (a profiler range
-around each stage, a per-thread tally).
+around each stage).
 """
 
 from __future__ import annotations

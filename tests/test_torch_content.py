@@ -3,7 +3,8 @@ lamsa_tpu_torch/pipeline/extend.py) against the JAX package's DpBatcher
 on the CPU, exact DpResults: the cases of tests/test_gather_dispatch.py
 (content equals descriptor, with zero-length instances; long gaps in
 the (5120, 256) bucket against the oracle) and tests/test_edge_cases.py
-(the zdrop extension pair), one device and three CPU entries."""
+(the zdrop extension pair), with no mesh, a mesh of one entry and three
+CPU entries; and the ranges each chunk is split into, one per entry."""
 
 import numpy as np
 import pytest
@@ -15,13 +16,14 @@ from lamsa_tpu.ops import oracle
 from lamsa_tpu.pipeline.extend import DpBatcher as JaxBatcher
 from lamsa_tpu_torch.config import ScoreParams
 from lamsa_tpu_torch.ops.wire import pack_codes_words
-from lamsa_tpu_torch.parallel.mesh import make_mesh
+from lamsa_tpu_torch.parallel.mesh import make_mesh, row_blocks
+from lamsa_tpu_torch.pipeline import extend
 from lamsa_tpu_torch.pipeline.extend import DpBatcher
 
 torch.set_num_threads(1)
 
 SC = dict(match=1, mismatch=3, gap_open=2, gap_ext=1)
-MESHES = {"one": None, "three": ("cpu",) * 3}
+MESHES = {"one": None, "one_entry": ("cpu",), "three": ("cpu",) * 3}
 
 
 def _mesh(name):
@@ -51,8 +53,8 @@ def test_content_matches_descriptors_and_jax(mesh):
     words = tuple(torch.from_numpy(pack_codes_words(a))
                   for a in (flat, refc))
     b_content = _batcher(mesh, ScoreParams(**SC))
-    b_desc = DpBatcher(ScoreParams(**SC), device_sources=[words] * 3
-                       if MESHES[mesh] else words,
+    b_desc = DpBatcher(ScoreParams(**SC), device_sources=[words] * len(
+                       MESHES[mesh]) if MESHES[mesh] else words,
                        host_sources=(flat, refc), mesh=_mesh(mesh))
     b_jax = JaxBatcher(JaxScores(**SC))
 
@@ -98,6 +100,42 @@ def test_content_matches_descriptors_and_jax(mesh):
     for hc, hd, hj in ext:
         _same(b_content.result(hc), b_jax.result(hj))
         _same(b_content.result(hc), b_desc.result(hd))
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_chunks_split_into_one_range_per_entry(monkeypatch, mesh):
+    """Every chunk is launched in contiguous ranges, one per entry that
+    gets instances (row_blocks): with no mesh or a mesh of one entry,
+    one range (0, K) per chunk of K instances. Ten global gap fills in
+    chunks of at most 4 give chunks of 4, 4 and 2, and the results equal
+    the JAX batcher's."""
+    monkeypatch.setitem(extend.CHUNK_BY_M, (128, 128), 4)
+    seen = []
+    real = DpBatcher._collect
+
+    def collect(self, sl, M, W, parts, topdown=False):
+        seen.append((len(sl["m"]), [(a, b) for a, b, *_ in parts]))
+        return real(self, sl, M, W, parts, topdown)
+
+    monkeypatch.setattr(DpBatcher, "_collect", collect)
+    rng = np.random.default_rng(3)
+    b = _batcher(mesh, ScoreParams(**SC))
+    bj = JaxBatcher(JaxScores(**SC))
+    hs = []
+    for m in rng.integers(20, 100, 10):
+        t = rng.integers(0, 4, int(m) + int(rng.integers(-10, 10)))
+        t = t.astype(np.uint8)
+        hs.append((b.add_global(t[:m], t), bj.add_global(t[:m], t)))
+    b.run()
+    bj.run()
+    for h, hj in hs:
+        _same(b.result(h), bj.result(hj))
+    n = len(MESHES[mesh] or ("cpu",))
+    assert sorted(k for k, _ in seen) == [2, 4, 4]
+    for k, ranges in seen:
+        assert ranges == [(a, c) for a, c in row_blocks(k, n) if a < c]
+        if n == 1:
+            assert ranges == [(0, k)]
 
 
 def test_descriptors_given_ride_the_batchers_sources():

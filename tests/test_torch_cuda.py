@@ -176,6 +176,19 @@ def test_dp_batcher_two_entries_on_one_card(dev):
     assert torch.cuda.current_stream(dev) not in b.streams.values()
 
 
+@pytest.mark.parametrize("one_entry", [False, True])
+def test_dp_batcher_one_entry_runs_on_the_current_stream(dev, one_entry):
+    """A DpBatcher of one entry (no mesh, or the mesh (cuda:0,)) run on
+    a caller's side stream launches its chunks on that stream: it makes
+    no stream of its own, and its results equal the CPU run's."""
+    _, want = _batcher_results(None, torch.device("cpu"))
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        b, got = _batcher_results((dev,) if one_entry else None, dev)
+    assert b.streams == {}
+    assert got == want
+
+
 def _content_results(d):
     """A content-only DpBatcher on device d over 120 global gap fills and
     120 extensions of random codes: (results, launches per kernel)."""

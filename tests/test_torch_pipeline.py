@@ -1,15 +1,17 @@
-"""The port's ``align_reads(pipeline=N)`` on the CPU.
+"""The port's ``align_reads`` on the CPU.
 
-The port accepts the JAX package's ``pipeline`` and runs its batches in
-order at every depth. Records at depths 1, 2 and 3 equal the JAX
-package's ``align_reads(..., pipeline=2)`` byte for byte on
-tests/test_e2e.py's pipelined world (24 reads of 300-800 bp at batch
-8), on an FM-index world and over a three-entry CPU mesh. A batch's
-exception reaches the caller and no later batch starts; closing the
-generator early returns; every batch runs on the caller's thread.
-Several batchers on threads of their own share the in-flight byte
-budget: it bounds their chunks together and cannot deadlock, even below
-one chunk's size."""
+``align_reads`` runs its batches one at a time, in order, on the
+caller's thread, and a read's records do not depend on how the run is
+cut into batches. Records at batch sizes 1, 5 and 24 equal the JAX
+package's ``align_reads(..., batch_size=8, pipeline=2)`` byte for byte
+on tests/test_e2e.py's pipelined world (24 reads of 300-800 bp), as do
+those of an FM-index world and of a three-entry CPU mesh at two batch
+sizes each. A batch's exception reaches the caller and no later batch
+starts; closing the generator early returns; every batch runs on the
+caller's thread, starting where its batch size puts it. Several
+batchers on threads of their own share the in-flight byte budget: it
+bounds their chunks together and cannot deadlock, even below one
+chunk's size."""
 
 import threading
 import time
@@ -55,18 +57,18 @@ def e2e_world():
     return ref, idx, reads, want
 
 
-@pytest.mark.parametrize("depth", [1, 2, 3])
-def test_depths_equal_jax_pipeline(e2e_world, depth):
+@pytest.mark.parametrize("batch_size", [1, 5, 24])
+def test_batch_sizes_equal_jax(e2e_world, batch_size):
     ref, idx, reads, want = e2e_world
     pref, pidx, pcfg = port_world(ref, idx, CFG)
-    got = _per_read(align_reads(pref, pidx, reads, pcfg, batch_size=8,
-                                pipeline=depth, device="cpu"))
+    got = _per_read(align_reads(pref, pidx, reads, pcfg,
+                                batch_size=batch_size, device="cpu"))
     assert len(got) == len(reads)
     assert got == want
 
 
-@pytest.mark.parametrize("depth", [2, 3])
-def test_depths_equal_jax_on_fm_world(depth):
+@pytest.mark.parametrize("batch_size", [3, 24])
+def test_batch_sizes_equal_jax_on_fm_world(batch_size):
     rng = np.random.default_rng(31)
     genome, ref, _ = make_ref(rng, 60000)
     idx = FmIndex.build(ref.codes, sa_rate=4)
@@ -76,18 +78,18 @@ def test_depths_equal_jax_on_fm_world(depth):
                                 pipeline=2), jax_format)
     pref, pidx, pcfg = port_world(ref, idx, CFG)
     aligner = Aligner(pref, pidx, pcfg, device="cpu")
-    for d in (1, depth):
-        assert _sam(align_reads(pref, pidx, reads, pcfg, batch_size=3,
-                                pipeline=d, aligner=aligner)) == want
+    assert _sam(align_reads(pref, pidx, reads, pcfg, batch_size=batch_size,
+                            aligner=aligner)) == want
 
 
-@pytest.mark.parametrize("depth", [2, 3])
-def test_depths_equal_over_three_cpu_entries(e2e_world, depth):
-    """The first 9 reads in batches of 3, each split over the entries."""
+@pytest.mark.parametrize("batch_size", [3, 24])
+def test_batch_sizes_equal_jax_over_three_cpu_entries(e2e_world, batch_size):
+    """The first 9 reads in batches of 3, or in one batch, each batch
+    split over the entries."""
     ref, idx, reads, want = e2e_world
     aligner = Aligner(*port_world(ref, idx, CFG), mesh=["cpu"] * 3)
-    got = _per_read(align_reads(None, None, reads[:9], batch_size=3,
-                                pipeline=depth, aligner=aligner))
+    got = _per_read(align_reads(None, None, reads[:9],
+                                batch_size=batch_size, aligner=aligner))
     assert got == want[:9]
 
 
@@ -135,7 +137,7 @@ def test_batch_exception_reaches_caller(e2e_world):
                                             delay=0.05)
     # 12 batches of 2
     box = _within(lambda: list(align_reads(None, None, reads, batch_size=2,
-                                           pipeline=3, aligner=aligner)))
+                                           aligner=aligner)))
     assert isinstance(box.get("error"), ValueError)
     assert "batch 1 failed" in str(box["error"])
     assert started == [0, 1]            # none after the failure
@@ -146,8 +148,7 @@ def test_close_after_first_batch_returns(e2e_world):
     aligner, started, _ = _counting_aligner(e2e_world, delay=0.05)
 
     def first_then_close():
-        gen = align_reads(None, None, reads, batch_size=2, pipeline=3,
-                          aligner=aligner)
+        gen = align_reads(None, None, reads, batch_size=2, aligner=aligner)
         first = [next(gen) for _ in range(2)]
         gen.close()
         return first
@@ -158,14 +159,16 @@ def test_close_after_first_batch_returns(e2e_world):
     assert started == [0]
 
 
-@pytest.mark.parametrize("depth", [None, 1, 3])
-def test_batches_run_in_order_on_the_callers_thread(e2e_world, depth):
+@pytest.mark.parametrize("batch_size,starts",
+                         [(8, [0, 1, 2]), (12, [0, 1]), (24, [0])])
+def test_batches_run_in_order_on_the_callers_thread(e2e_world, batch_size,
+                                                    starts):
     _, _, reads, want = e2e_world
     aligner, started, threads = _counting_aligner(e2e_world)
-    got = _per_read(align_reads(None, None, reads, batch_size=8,
-                                pipeline=depth, aligner=aligner))
+    got = _per_read(align_reads(None, None, reads, batch_size=batch_size,
+                                aligner=aligner))
     assert got == want
-    assert started == [0, 1, 2]
+    assert started == starts
     assert set(threads) == {threading.current_thread()}
 
 

@@ -21,6 +21,9 @@ from lamsa_tpu_torch.pipeline.extend import DpBatcher
 torch.set_num_threads(1)
 
 SC = dict(match=1, mismatch=3, gap_open=2, gap_ext=1)
+# device sources the test never reads: the batcher takes its one entry's
+# device from them
+_UNREAD = (torch.zeros(1, dtype=torch.int32),) * 2
 
 
 def _same(a, b):
@@ -50,7 +53,7 @@ def test_scalar_global_desc_routes_to_the_adiag_pair(rng, monkeypatch):
 
     monkeypatch.setattr(DpBatcher, "_dispatch_cols", fake_dispatch_cols)
     monkeypatch.setattr(DpBatcher, "_collect", fake_collect)
-    b = DpBatcher(ScoreParams(), device_sources=(object(), object()))
+    b = DpBatcher(ScoreParams(), device_sources=_UNREAD)
     K = 40
     m = rng.integers(300, 500, K)
     n = m + rng.integers(80, 110, K)          # need > 112: W = 256
@@ -131,7 +134,7 @@ def test_global_desc_equals_bulk_and_jax():
 def test_global_desc_trivial_gaps_resolve_at_once():
     """m = 0 or n = 0: resolved when enqueued, before run(), as the JAX
     batcher resolves them (pure D run, pure I run, empty)."""
-    b = DpBatcher(ScoreParams(**SC), device_sources=(object(), object()))
+    b = DpBatcher(ScoreParams(**SC), device_sources=_UNREAD)
     j = JaxBatcher(JaxScores(**SC), host_sources=(np.zeros(0, np.uint8),
                                                   np.zeros(0, np.uint8)))
     gapo, gape = SC["gap_open"], SC["gap_ext"]
